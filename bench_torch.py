@@ -475,21 +475,27 @@ class Bench:
 
     def snapshot(self):
         from kma_tpu_torch.devserve import kernel_launches
+        g = self.srv.graphs
         return (collections.Counter(self.srv.requests), kernel_launches(),
-                collections.Counter(self.srv.faults))
+                collections.Counter(self.srv.faults),
+                None if g is None else collections.Counter(g.replays))
 
     def served_since(self, snap) -> dict:
-        """The daemon's requests by op, its faults and the kernel
-        launches since ``snap``, the requests and faults also as
-        ``launch.request_line`` words."""
+        """The daemon's requests by op, its step graphs' replays, its
+        faults and the kernel launches since ``snap``, the requests,
+        graphs and faults also as ``launch.request_line`` words."""
         from kma_tpu_torch import launch
         from kma_tpu_torch.devserve import kernel_launches
         req = collections.Counter(self.srv.requests) - snap[0]
         now = kernel_launches()
+        g = self.srv.graphs
         return {"requests": launch.request_line(SimpleNamespace(
                     requests=req, device=self.srv.device,
                     faults=collections.Counter(self.srv.faults) - snap[2],
-                    first_fault=self.srv.first_fault)),
+                    first_fault=self.srv.first_fault,
+                    graphs=None if g is None else SimpleNamespace(
+                        captures=g.captures,
+                        replays=collections.Counter(g.replays) - snap[3]))),
                 "requests_by_op": dict(req),
                 "launches": {k: now[k] - snap[1][k] for k in now}}
 

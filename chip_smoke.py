@@ -24,7 +24,10 @@ non-zero):
     ``-1t1 -device on`` through the Python CLI and, when
     ``native/kma_cli`` builds, the native CLI, and with ``-device off``;
     the outputs must be byte-identical (``.frag.gz`` after
-    decompression).  100 bp reads leave no step-3 window past the NW
+    decompression), and the daemon's dense op must replay the step
+    graphs its ``warm()`` captured (replays > 0; every launcher's exit
+    line below must name its graphs, with replays where it served dense
+    requests).  100 bp reads leave no step-3 window past the NW
     pre-pass trigger (32k cells), so a second run of 200 reads of 500 bp
     with a mutated 300 bp prefix drives the NW kernel the same way (the
     device memory it adds must fit the footprint's workspace); the
@@ -65,8 +68,9 @@ non-zero):
     terms, the budget read from ``mem_get_info`` and the image build
     time); 50,000 150 bp reads of one simulated isolate (one allele a
     locus, ~1 % substitutions, both strands) are mapped with ``-1t1
-    -device on`` through both CLIs (peak device memory must stay under
-    the footprint), the native default mode (``KMA_DEV_CHAIN=force``)
+    -device on`` through both CLIs (step graphs replayed; peak device
+    memory, allocated and reserved with the graphs' pool, must stay
+    under the footprint), the native default mode (``KMA_DEV_CHAIN=force``)
     and the Python CLI's ``KMA_TPU_NO_FUSED=1`` default mode on 5,000 of
     them (``chain`` requests served), each byte-identical to ``-device
     off``; one ``run_score_rows`` call on the whole table (t_pad
@@ -91,8 +95,9 @@ non-zero):
     (``KMA_TPU_DENSE_BUDGET_MB``, the largest shard's footprint, under
     the one-card footprint) by the dense scanner on an image whose
     template columns are sharded over every card (``["cuda:0",
-    "cuda:0"]`` on a one-card machine); 20,000 100 bp reads through both
-    CLIs' ``-1t1 -device on`` and the native default mode
+    "cuda:0"]`` on a one-card machine), which replays no step graph;
+    20,000 100 bp reads through both CLIs' ``-1t1 -device on`` and the
+    native default mode
     (``KMA_DEV_CHAIN=force``), byte-identical to ``-device off``, with
     run-scoring calls on every shard; one shard's kernel call equals its
     plain version bit for bit, one sharded ``dense_scan_device`` batch
@@ -112,8 +117,11 @@ non-zero):
     replayed, the replay equal to the eager call bit for bit; the same
     for a 4,096-read batch of the panel at tier 0 and tier 1; it prints
     each step's eager and replay ms a call (CUDA events, median of 25)
-    and device events a call (torch.profiler).  A failed capture fails
-    the smoke.
+    and device events a call (torch.profiler); then one tier-0 batch of
+    the daemon's shape (B 2,048, L 128) through the daemon's own step
+    graphs: a replay of the graph ``warm()`` captured, bit-equal to its
+    eager step and its plain version, and its ms beside the eager
+    step's.  A failed capture fails the smoke.
 
 Every daemon the smoke serves, and every one the launcher starts, must
 stop with ``faults 0``: an op that raised other than by design (a
@@ -133,6 +141,7 @@ import gc
 import gzip
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -799,6 +808,15 @@ def with_budget_mb(mb, build):
         del os.environ["KMA_TPU_DENSE_BUDGET_MB"]
 
 
+def graph_keys(graphs):
+    """Each step graph of a daemon: its tier, B and L, capture seconds and
+    replays."""
+    return "; ".join(
+        "tier %d B %d L %d (captured in %.3f s, %d replays)"
+        % (0 if k[10] else 1, k[1], k[11], graphs.capture_s[k],
+           graphs.replays[k]) for k in graphs.graphs) or "none"
+
+
 def med(xs):
     xs = sorted(xs)
     return xs[len(xs) // 2] if xs else float("nan")
@@ -928,14 +946,22 @@ def phase_e_big_db(torch, np, work, env, env_off, py_cli, native_ran, gpu,
            srv.build_s, gpu))
     t0 = time.time()
     srv.warm([192], verbose=False)
-    say("cgMLST dense daemon warmed (L 192, both tiers, chain) in %.1f s"
-        % (time.time() - t0))
+    graphs = srv.graphs
+    if graphs is None or not graphs.graphs:
+        fail("the cgMLST dense daemon holds no step graph after warm()")
+    say("cgMLST dense daemon warmed (L 192, both tiers, chain) in %.1f s; "
+        "step graphs %s; pool %.1f MB (the footprint's graph term %.1f MB "
+        "beside 2 x a batch's workspace %.1f MB)  [%s]"
+        % (time.time() - t0, graph_keys(graphs),
+           graphs.pool_bytes() / 2 ** 20, fp.graphs / 2 ** 20,
+           fp.workspace / 2 ** 20, gpu))
     serve = serve_thread(srv, socket_path(o("cg")), "cgMLST dense daemon")
 
     # the cgMLST -1t1 path: counts from zero
     reset_kernel_launches()
     srv.requests.clear()
     srv.dense_ms.clear()
+    graphs.replays.clear()
     srv.reads_scanned = srv.reads_overflow = 0
     for sc in srv.scanners.values():
         sc.tier0_batches = sc.wide_reads = 0
@@ -957,18 +983,24 @@ def phase_e_big_db(torch, np, work, env, env_off, py_cli, native_ran, gpu,
         walls[name] = (on, off)
         dense_by_cli[name] = ms
     peak = torch.cuda.max_memory_allocated(dev)
+    reserved = torch.cuda.max_memory_reserved(dev)
+    pool = graphs.pool_bytes()
     launches = kernel_launches()
     cg_runs = launches["run_score_rows"] + launches["run_score_gathered"]
-    say("cgMLST -1t1 path counts: requests %s; kernel launches %s; peak "
-        "device memory %.1f MB (max_memory_allocated) against the "
-        "footprint %.1f MB  [%s]" % (dict(srv.requests), launches,
-                                     peak / 2 ** 20, fp.total / 2 ** 20,
-                                     gpu))
-    if launches["run_score_rows"] <= 0:
-        fail("the cgMLST -1t1 runs launched no run_score_rows kernel")
-    if peak > fp.total:
-        fail("peak device memory %d B is over the footprint %d B"
-             % (peak, fp.total))
+    cg_replays = sum(graphs.replays.values())
+    say("cgMLST -1t1 path counts: requests %s; kernel launches %s; step "
+        "graphs %s; peak device memory %.1f MB allocated, %.1f MB reserved "
+        "(max_memory_allocated / max_memory_reserved; the graphs' pool "
+        "%.1f MB of it) against the footprint %.1f MB  [%s]"
+        % (dict(srv.requests), launches, graph_keys(graphs),
+           peak / 2 ** 20, reserved / 2 ** 20, pool / 2 ** 20,
+           fp.total / 2 ** 20, gpu))
+    if launches["run_score_rows"] <= 0 or cg_replays <= 0:
+        fail("the cgMLST -1t1 runs launched no run_score_rows kernel or "
+             "replayed no step graph")
+    if max(peak, reserved) > fp.total:
+        fail("peak device memory %d B allocated, %d B reserved is over the "
+             "footprint %d B" % (peak, reserved, fp.total))
     if native_ran:
         same_outputs(o("cg_native_dev"), o("cg_python_host"),
                      "native vs python CLI -1t1 (cgMLST)")
@@ -1079,7 +1111,8 @@ def phase_e_big_db(torch, np, work, env, env_off, py_cli, native_ran, gpu,
                 dense_by_cli=dense_by_cli, ps_by_cli=ps_by_cli,
                 ps_stats=ps_stats, ps_chain_wall=ps_chain_wall,
                 chain_ms=chain_ms, n_reads=n_reads,
-                peak=peak, footprint=fp.total, budget=budget,
+                peak=peak, reserved=reserved, pool=pool,
+                footprint=fp.total, budget=budget,
                 launches=cg_runs, kern=kern, fs_ms=fs_ms,
                 fs_cpu_ms=fs_cpu_ms, **shape)
 
@@ -1538,11 +1571,13 @@ def phase_f_sharded(torch, np, work, env, env_off, py_cli, native_ran,
     calls = list(d.shard_calls)
     runs = launches["run_score_rows"] + launches["run_score_gathered"]
     say("phase (f) path counts: requests %s; kernel launches %s; "
-        "run-scoring calls a shard %s" % (dict(srv.requests), launches,
-                                          calls))
+        "run-scoring calls a shard %s; step graphs %s (a sharded image "
+        "runs eager)" % (dict(srv.requests), launches, calls, srv.graphs))
     if min(calls) <= 0 or sum(calls) != runs:
         fail("phase (f): run-scoring launches %d, calls a shard %s: not "
              "every shard's kernel ran on the card" % (runs, calls))
+    if srv.graphs is not None:
+        fail("phase (f): the sharded daemon replays step graphs")
     say("phase (f): -device on == -device off for %s; %d templates "
         "reported" % (", ".join(walls), n_res))
 
@@ -1550,6 +1585,8 @@ def phase_f_sharded(torch, np, work, env, env_off, py_cli, native_ran,
     # past this point do not count)
     one = tsd.DenseIndex.from_host(srv.idx, d.device,
                                    mem_budget_bytes=1 << 40)
+    # the unsharded image's eager step, as the sharded image runs it
+    one.graphs = None
     sc = next(iter(srv.scanners.values()))
     chk = shard_kernel_check(torch, np, kb, sk, tsd, ScanParams, sc, one,
                              codes, gpu)
@@ -1644,20 +1681,22 @@ def report_e(cg, gpu):
     for name, ms in cg["dense_by_cli"].items():
         pms = cg["ps_by_cli"][name]
         say("cgMLST dense op, %s requests, same run: dense scanner median "
-            "%.2f ms (%d requests, max %.2f), pair-stream median %.2f ms (%d "
-            "requests, max %.2f)  [%s]" % (name, med(ms), len(ms), max(ms),
-                                           med(pms), len(pms), max(pms),
-                                           gpu))
+            "%.2f ms (%d requests, min %.2f, max %.2f), pair-stream median "
+            "%.2f ms (%d requests, max %.2f)  [%s]"
+            % (name, med(ms), len(ms), min(ms), max(ms), med(pms),
+               len(pms), max(pms), gpu))
     cms = cg["chain_ms"]
     say("cgMLST chain op: %d requests, median %.2f ms, max %.2f ms  [%s]"
         % (len(cms), med(cms), max(cms) if cms else float("nan"), gpu))
     say("cgMLST dense image: V %d, t_pad %d, footprint %.1f MB, budget "
         "read %.1f MB, built in %.1f s; peak device memory of the -1t1 "
-        "runs %.1f MB; index build %.1f s; pair-stream fast_scan_device "
-        "tier 0 card %.3f ms, CPU %.1f ms  [%s]"
+        "runs %.1f MB allocated, %.1f MB reserved (the step graphs' pool "
+        "%.1f MB); index build %.1f s; pair-stream fast_scan_device tier 0 "
+        "card %.3f ms, CPU %.1f ms  [%s]"
         % (cg["V"], cg["t_pad"], cg["footprint"] / 2 ** 20,
            cg["budget"] / 2 ** 20, cg["build_s"], cg["peak"] / 2 ** 20,
-           cg["t_index"], cg["fs_ms"], cg["fs_cpu_ms"], gpu))
+           cg["reserved"] / 2 ** 20, cg["pool"] / 2 ** 20, cg["t_index"],
+           cg["fs_ms"], cg["fs_cpu_ms"], gpu))
 
 
 # -- (g) the production dense step captured whole in a CUDA graph ----------
@@ -1753,16 +1792,60 @@ def phase_entry(torch, np, didx, codes, gpu):
                "not measured" if n_replay is None else "%.1f" % n_replay,
                gpu))
         del graph, gout
+    daemon_cache_replay(torch, sc, didx, pc, gpu)
     say("entry phase: %d steps captured and replayed in %.1f s"
         % (len(cases), time.time() - t0))
     return runs
 
 
+def daemon_cache_replay(torch, sc, didx, pc, gpu):
+    """(g) One tier-0 batch of the daemon's shape (B 2048, L 128) through
+    the daemon's own step graphs (``didx.graphs``, captured by its
+    ``warm()``): a replay, no new capture, bit-equal to its eager step
+    and to the plain version; then the ms a batch of the replay with its
+    input and output copies beside the eager step's."""
+    from kma_tpu_torch import entry as te
+    from kma_tpu_torch.mapping import scan_dense as tsd
+    g, (B, L) = didx.graphs, (2048, pc.shape[1])
+    c = torch.from_numpy(pc[:B].copy()).to(didx.device)
+    n = torch.full((B,), READ_LEN, dtype=torch.int32, device=didx.device)
+    cap = sc.flat_headroom * B
+    key = tsd.graph_key(didx, c.shape, sc._statics(L, 0, cap))
+    if g is None or key not in g.graphs:
+        fail("entry phase: the daemon's tier-0 graph (B %d, L %d) is not in "
+             "its cache" % (B, L))
+    n_cap, n_rep = sum(g.captures.values()), g.replays[key]
+    got = sc._call(c, n, 0, cap)
+    step = te.dense_step(sc, B, L, 0)
+    eager = step(c, n, didx.exist, didx.kv, didx.bits)
+    plain = step(c.cpu(), n.cpu(), didx.exist.cpu(), didx.kv.cpu(),
+                 didx.bits.cpu())
+    torch.cuda.synchronize()
+    if sum(g.captures.values()) != n_cap or g.replays[key] != n_rep + 1:
+        fail("entry phase: the daemon's batch was not one replay of its "
+             "graph (captures %d -> %d, replays %d -> %d)"
+             % (n_cap, sum(g.captures.values()), n_rep, g.replays[key]))
+    for x, y, z, part in zip(got, eager, plain, ("meta", "flat")):
+        if not (torch.equal(x, y) and torch.equal(x.cpu(), z)):
+            fail("entry phase: the daemon's replay's %s differs from its "
+                 "eager step or the plain version" % part)
+    rep_ms = call_ms(torch, lambda: sc._call(c, n, 0, cap))
+    eager_ms = call_ms(torch, lambda: step(c, n, didx.exist, didx.kv,
+                                           didx.bits))
+    say("entry phase, the daemon's own step graphs: tier 0 B %d L %d "
+        "replayed from the graph warm() captured in %.3f s, == eager == "
+        "plain; a batch %.4f ms replayed (input and output copies "
+        "included), %.4f ms eager (CUDA events, median of %d); the "
+        "graphs' pool %.1f MB  [%s]"
+        % (B, L, g.capture_s[key], rep_ms, eager_ms, ENTRY_REPS,
+           g.pool_bytes() / 2 ** 20, gpu))
+
+
 def launcher_lines(err, what, dense=True):
     """The launcher's exit lines: (the requests line, {op: requests},
     {kernel: launches}, run-scoring launches); fails unless they name a
-    card and no fault and, with ``dense``, dense requests and
-    run-scoring launches."""
+    card, the daemon's step graphs and no fault and, with ``dense``,
+    dense requests, run-scoring launches and graph replays."""
     lines = [ln.split(": ", 1)[1] for ln in err.splitlines()
              if ln.startswith("# kma_tpu_torch run: ")]
     req = [ln for ln in lines if " requests on " in ln]
@@ -1777,9 +1860,13 @@ def launcher_lines(err, what, dense=True):
     launches = {k: int(n) for k, n in (x.split() for x in kl[0][
         len("kernel launches "):].split(", "))}
     runs = launches["run_score_rows"] + launches["run_score_gathered"]
-    if dense and (served["dense"] <= 0 or runs <= 0):
-        fail("%s: dense requests %d, run-scoring launches %d"
-             % (what, served["dense"], runs))
+    graphs = re.search(r", graphs (\d+) \(replays (\d+)\), ", req[0])
+    if graphs is None or int(graphs.group(1)) <= 0:
+        fail("%s: the daemon names no step graph: %s" % (what, req[0]))
+    if dense and (served["dense"] <= 0 or runs <= 0
+                  or int(graphs.group(2)) <= 0):
+        fail("%s: dense requests %d, run-scoring launches %d, graph "
+             "replays %s" % (what, served["dense"], runs, graphs.group(2)))
     return req[0], served, launches, runs
 
 
@@ -2095,10 +2182,18 @@ def main():
     serve = serve_thread(srv, socket_path(db), "daemon")
     cli_ok = wait_native(nat_proc)
 
+    graphs = srv.graphs
+    if graphs is None or not graphs.graphs:
+        fail("the panel daemon (unsharded, on the card) holds no step graph "
+             "after warm()")
+    say("daemon step graphs after warm(): %s; pool %.1f MB  [%s]"
+        % (graph_keys(graphs), graphs.pool_bytes() / 2 ** 20, gpu))
+
     # main path: counts from zero
     reset_kernel_launches()
     srv.requests.clear()
     srv.dense_ms.clear()
+    graphs.replays.clear()
     srv.reads_scanned = srv.reads_overflow = 0
     dev_wall, err = run_cli(py_cli + ["-i", reads, "-t_db", db, "-o",
                                       o("py_dev"), "-1t1", "-device",
@@ -2149,12 +2244,14 @@ def main():
     launches = kernel_launches()
     run_score_launches = (launches["run_score_rows"]
                           + launches["run_score_gathered"])
+    main_replays = sum(graphs.replays.values())
     say("ran: %s" % "; ".join(ran))
-    say("main path counts: requests %s; kernel launches %s"
-        % (dict(srv.requests), launches))
-    if py_dense <= 0 or py_runs <= 0:
-        fail("python CLI run sent no dense request or launched no "
-             "run-scoring kernel")
+    say("main path counts: requests %s; kernel launches %s; step graphs "
+        "%s, %d replays" % (dict(srv.requests), launches,
+                            graph_keys(graphs), main_replays))
+    if py_dense <= 0 or py_runs <= 0 or main_replays <= 0:
+        fail("python CLI run sent no dense request, launched no "
+             "run-scoring kernel or replayed no step graph")
     if nw_launches <= 0:
         fail("python CLI run launched no NW kernel (nw_qext op)")
 
@@ -2241,10 +2338,12 @@ def main():
                 gpu))
     say("overflow share: %d of %d reads (%.4f)  [%s]"
         % (overflow, scanned, overflow / max(scanned, 1), gpu))
-    say("daemon dense op: %d requests, median %.2f ms, max %.2f ms per "
-        "request of up to 4096 reads  [%s]"
+    say("daemon dense op: %d requests, median %.2f ms, min %.2f ms, max "
+        "%.2f ms per request of up to 4096 reads, %d batches replayed from "
+        "step graphs  [%s]"
         % (len(dms), dms[len(dms) // 2] if dms else 0.0,
-           dms[-1] if dms else 0.0, gpu))
+           dms[0] if dms else 0.0, dms[-1] if dms else 0.0, main_replays,
+           gpu))
     for name, (wall, chain, admitted) in served_chain.items():
         say("python -m kma_tpu_torch %s -device on, the card's figures (its "
             "own daemon's start included): %.1f reads/s (%.2f s wall); %d "

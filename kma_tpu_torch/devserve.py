@@ -29,6 +29,13 @@ pair-stream scanner (``mapping/scan_fast.py``).  Its ``dense`` op runs
 on the device; its ``chain`` op is refused, so chain clients take the
 host.
 
+On a CUDA card the unsharded dense image's ``dense`` op replays one
+captured CUDA graph of the dense step a static shape
+(``scan_dense.StepGraphs``, the counterpart of the JAX jit cache);
+``warm()`` captures the hot shapes, and ``graphs`` counts captures and
+replays by key.  The sharded image, the pair-stream scanner and the
+other ops run eager.
+
 An op that raises answers ``{ok: 0, err}`` and the daemon lives on, as
 the JAX daemon does; the client's host takes the work over.  A
 ``Refusal`` (``chain`` on a pair-stream image, an NW request past the
@@ -357,6 +364,14 @@ class TorchDevServer:
     def fault_line(self) -> str:
         return fault_line(self.faults, self.first_fault)
 
+    @property
+    def graphs(self):
+        """The dense step's graphs (``scan_dense.StepGraphs``): captures
+        and replays by key, on an unsharded dense image on a CUDA card;
+        None where the dense op runs eager (the CPU, a sharded image,
+        the pair-stream scanner)."""
+        return self.didx.graphs if self.scanner_kind == "dense" else None
+
     # -- ops ---------------------------------------------------------------
 
     def _scanner(self, meta: dict):
@@ -493,8 +508,11 @@ class TorchDevServer:
     # -- warm-up -----------------------------------------------------------
 
     def warm(self, lengths=(128,), verbose=True):
-        """Build the kernels and run the hot shapes once, so the first
-        client batch pays no build or allocator warm-up."""
+        """Build the kernels and run the hot shapes once, tier 0 and tier
+        1 at each of ``lengths`` (the JAX daemon compiles them), so the
+        first client batch pays no build or allocator warm-up: on a CUDA
+        card that captures the dense step's graphs of those shapes
+        (``graphs``), as the JAX ``warm()`` compiles its jit."""
         rng = np.random.default_rng(0)
         sc = self._scanner({"M": self._default_pen.M,
                             "MM": self._default_pen.MM,
@@ -515,8 +533,11 @@ class TorchDevServer:
                 if dev.type == "cuda":
                     torch.cuda.synchronize(dev)
             if verbose:
-                print("# devserve: warmed dense L=%d in %.1fs"
-                      % (L, time.time() - t0), file=sys.stderr)
+                print("# devserve: warmed dense L=%d in %.1fs%s"
+                      % (L, time.time() - t0, "" if self.graphs is None
+                         else " (graphs captured: %d)"
+                         % sum(self.graphs.captures.values())),
+                      file=sys.stderr)
         # chain lookup shape (default mode, PE and -hmm)
         if self.scanner_kind == "dense" and self.didx.kmersize <= 16:
             for L in lengths:

@@ -8,7 +8,10 @@ JAX package's tiny problem (8 templates of 200 bp, 8 reads of 48 bp,
 k 16, seed 0) with the index built by the port's own code.  The JAX
 step certifies that it is jittable; the port's certifies that it has
 static shapes and no host sync, so that ``capture`` can take it whole
-into one CUDA graph and replay it.  ``dryrun_multichip`` is
+into one CUDA graph and replay it, as the daemon's dense op replays one
+graph of it a static shape (``mapping.scan_dense.StepGraphs``: the same
+step, ``DenseScanner.step``, captured by ``capture``).
+``dryrun_multichip`` is
 ``parallel/multichip.py``'s.
 
 ``fn(codes, lengths, exist, kv, bits)`` takes the port's image tensors:
@@ -19,7 +22,6 @@ on the CPU it takes the plain version.
 
 from __future__ import annotations
 
-import dataclasses
 from typing import Callable, List, Tuple
 
 import numpy as np
@@ -27,8 +29,7 @@ import torch
 
 from .config import Penalties
 from .device import DeviceLike, resolve
-from .mapping.scan_dense import TIERS, DenseIndex, DenseScanner, \
-    dense_scan_device
+from .mapping.scan_dense import TIERS, DenseIndex, DenseScanner
 from .parallel.multichip import dryrun_multichip, synthetic_index
 
 __all__ = ["entry", "dense_step", "capture", "tiny_problem",
@@ -62,27 +63,15 @@ def dense_step(scanner: DenseScanner, B: int, L: int, tier: int = 1,
                flat_cap: int = None) -> Callable:
     """``dense_scan_device`` of a [B, L] batch at ``tier``'s caps as a
     pure function of (codes, lengths, exist, kv, bits), on the tensors'
-    own device, as the daemon's scanner runs a batch of that tier: the
-    scanner's statics (``_sparams``, ``small_ids``, no proxi), tier 0
-    merged, tier 1 unmerged.  ``flat_cap`` defaults to the daemon's:
-    ``flat_headroom`` ids a read at tier 0, a chunk's worst case at
-    tier 1 (``wide_chunks``)."""
-    d = scanner.didx
+    own device: ``scanner.step``, the function the daemon's step graphs
+    capture for a batch of that tier (the scanner's statics: ``_sparams``,
+    ``small_ids``, its ``proxi_frac``; tier 0 merged, tier 1 unmerged).
+    ``flat_cap`` defaults to the daemon's: ``flat_headroom`` ids a read
+    at tier 0, a chunk's worst case at tier 1 (``wide_chunks``)."""
     if flat_cap is None:
         flat_cap = scanner.flat_headroom * B if tier == 0 \
-            else 2 * min(TIERS[1][1], d.t_pad) * B
-    statics = dict(sparams=scanner._sparams(L, tier), flat_cap=flat_cap,
-                   small_ids=scanner.small_ids, proxi_frac=None,
-                   merged=tier == 0)
-
-    def fn(codes, lengths, exist, kv, bits):
-        img = dataclasses.replace(d, exist=exist, kv=kv, bits=bits,
-                                  device=bits.device, sharded=False,
-                                  devices=(bits.device,),
-                                  shard_bits=(bits,), shard_calls=[0])
-        return dense_scan_device(codes, lengths, img, **statics)
-
-    return fn
+            else 2 * min(TIERS[1][1], scanner.didx.t_pad) * B
+    return scanner.step(L, tier, flat_cap)
 
 
 def image_args(didx: DenseIndex, codes: np.ndarray, lengths: np.ndarray,
@@ -109,13 +98,16 @@ def entry(device: DeviceLike = None):
     return fn, image_args(scanner.didx, codes, lengths, dev)
 
 
-def capture(fn: Callable, args):
+def capture(fn: Callable, args, pool=None):
     """``fn(*args)`` taken whole into one ``torch.cuda.CUDAGraph``:
     WARMUP eager calls on a side stream, then the capture, whose
-    allocations come from the graph's own pool.  Returns (graph, the
-    graph's output tensors); ``graph.replay()`` reruns the step on the
-    tensors of ``args`` as they then hold, into those outputs.  Raises
-    when the step syncs the host or leaves the capturing stream."""
+    allocations come from the graph's own pool, or from ``pool``
+    (``torch.cuda.graph_pool_handle()``) shared with other graphs.
+    Returns (graph, the graph's output tensors); ``graph.replay()``
+    reruns the step on the tensors of ``args`` as they then hold, into
+    those outputs.  Raises when the step syncs the host or leaves the
+    capturing stream.  The one place the port captures: the daemon's
+    step graphs (``mapping.scan_dense.StepGraphs``) call it."""
     dev = args[0].device
     if dev.type != "cuda":
         raise ValueError("capture: tensors on %s, not a CUDA card" % dev)
@@ -124,8 +116,14 @@ def capture(fn: Callable, args):
     with torch.cuda.stream(side):
         for _ in range(WARMUP):
             fn(*args)
-    torch.cuda.current_stream(dev).wait_stream(side)
+    stream = torch.cuda.current_stream(dev)
+    stream.wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.device(dev), torch.cuda.graph(graph):
-        out: List[torch.Tensor] = fn(*args)
+    try:
+        with torch.cuda.device(dev), torch.cuda.graph(graph, pool=pool):
+            out: List[torch.Tensor] = fn(*args)
+    finally:
+        # a capture that fails can raise in torch.cuda.graph's exit
+        # before it makes the caller's stream current again
+        torch.cuda.set_stream(stream)
     return graph, out

@@ -45,13 +45,19 @@ SERVE_THREAD = "kma_tpu_torch-run-devserve"
 
 
 def request_line(srv: TorchDevServer) -> str:
-    """``dense 10, chain 0, nw_qext 1 requests on cuda:0, faults 0``, or
-    ``..., faults dense 2 (RuntimeError('...'))`` (``fault_line``)."""
+    """``dense 10, chain 0, nw_qext 1 requests on cuda:0, graphs 2
+    (replays 40), faults 0``, or ``..., faults dense 2
+    (RuntimeError('...'))`` (``fault_line``).  ``graphs N (replays M)``,
+    where the dense op replays graphs (``srv.graphs``): N graphs of the
+    dense step captured, M batches replayed from them."""
     ops = list(REPORTED_OPS) + sorted(
         op for op, n in srv.requests.items()
         if n and op not in REPORTED_OPS + ("hello", "dense_pipelined"))
-    return "%s requests on %s, %s" % (", ".join(
+    g = srv.graphs
+    return "%s requests on %s, %s%s" % (", ".join(
         "%s %d" % (op, srv.requests[op]) for op in ops), srv.device,
+        "" if g is None else "graphs %d (replays %d), " % (
+            sum(g.captures.values()), sum(g.replays.values())),
         fault_line(srv.faults, srv.first_fault))
 
 
@@ -81,6 +87,8 @@ def start(db: str, device: DeviceLike = None,
     srv.warm(verbose=False)
     t_warm = time.perf_counter()
     reset_kernel_launches()
+    if srv.graphs is not None:
+        srv.graphs.replays.clear()      # the run's replays, not warm()'s
     stages = ([("set-up", setup_s)] if setup_s is not None else []) + [
         ("CUDA init", t_cuda - t0), ("kernel load", t_lib - t_cuda),
         ("index read", t_srv - t_lib - srv.build_s),

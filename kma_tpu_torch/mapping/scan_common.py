@@ -109,7 +109,10 @@ def _padded(codes, lengths, rows: int, device: torch.device):
 def dispatch_tier0(call, codes, lengths, batch: int, flat_cap: int,
                    device: torch.device) -> list:
     """Queue ``call(codes_t, lens_t, 0, flat_cap)`` on every ``batch``-row
-    slice of a read set, without syncing."""
+    slice of a read set, without syncing.  Every slice is padded to
+    ``batch`` rows, so a read set's batches share one static shape: the
+    dense scanner's ``call`` replays one step graph for all of them
+    (``scan_dense.StepGraphs``, on a CUDA card)."""
     return [call(*_padded(codes[o: o + batch], lengths[o: o + batch],
                           batch, device), 0, flat_cap)
             for o in range(0, codes.shape[0], batch)]
@@ -124,7 +127,8 @@ def wide_chunks(call, codes, lengths, sel, best_cap: int,
     """Tier-1 pass of ``call`` over the reads ``sel`` on compacted chunks
     of ``rows`` rows.  The flat buffer holds a chunk's worst case, 2 *
     ``best_cap`` ids a read (2**21 ids, 8 MB, at the wide tier's caps),
-    so no tie list is cut short; only its used prefix comes back.
+    so no tie list is cut short; only its used prefix comes back.  Every
+    chunk is padded to ``rows`` rows: one static shape, one step graph.
 
     Yields (reads, meta [n, 2] int32, packed ids int32, n_out [n])."""
     flat_cap = rows * 2 * best_cap

@@ -20,13 +20,18 @@ semantics.
 
 Which image serves a DB is decided by its footprint on the device
 (``dense_footprint``): the bit table (V·t_pad/8 bytes), the hash tables,
-the workspace of two batches in flight and one chunk of the chain op,
+the workspace of two batches in flight, one chunk of the chain op and
+the step graphs' inputs, outputs and output copies (``graph_bytes``),
 each term reckoned from the tensors the scan allocates (a batch of long
 reads holds fewer of them), against the device's free memory when the
 image is built (``torch.cuda.mem_get_info``; the host's physical memory
 for the CPU) or an explicit budget (``mem_budget_bytes``,
 ``KMA_TPU_DENSE_BUDGET_MB``).  The table is built on the device in row
 chunks, so no host copy of it exists.
+
+On a CUDA card an unsharded image's batches replay one captured CUDA
+graph of the step a static shape (``StepGraphs``), as the JAX package
+runs one jitted program a static shape.
 
 A DB whose footprint is over one device's budget keeps the dense
 scan when two or more devices are given: the table's template columns
@@ -47,17 +52,20 @@ syncs the host.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import math
 import os
 import sys
-from typing import Dict, List, Optional, Sequence, Tuple
+import time
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve, resolve_devices
 from ..index.format import KmaIndex
+from ..ops import scan_kernel
 from ..ops.scan_kernel import run_score_rows
 from .device_index import (_cuckoo_build, _cuckoo_tsize, as_i32,
                            batch_kmers, lookup_voffsets, valid_windows)
@@ -82,8 +90,20 @@ FOOTPRINT_READ_PAD = 256
 FRONT_BYTES_A_WINDOW = 132
 FRONT_BYTES_A_RUN = 16
 #: batches whose workspaces are live at once: the pipelined dense op
-#: dispatches request k+1 while request k resolves (devserve)
+#: dispatches request k+1 while request k resolves (devserve); on an
+#: image that replays graphs (StepGraphs) one is the graphs' shared pool
+#: and the other the eager work beside it (a capture's warm-up calls,
+#: the other ops)
 IN_FLIGHT = 2
+#: tie ids a read of the flat buffer of a tier-0 batch
+FLAT_HEADROOM = 24
+#: graphs an image's StepGraphs holds at most: past it the least
+#: recently replayed is dropped (keys are (B, L, tier) per penalty set;
+#: the native client buckets L: 128, 192, 256, ...)
+MAX_GRAPHS = 16
+#: reads of a dense request whose output copies the footprint counts
+#: (the card's KMA_DEVSLICE, envelope.py)
+REQUEST_READS = 16384
 #: windows (rows x (L - k + 1)) of one chunk of the daemon's chain op:
 #: the CLIs' short-read requests (16,384 reads of 150 bp) take one
 CHAIN_WINDOWS = 1 << 22
@@ -139,6 +159,22 @@ def batch_workspace(G: int, R: int, cols: int, t_pad: int, best_cap: int,
     }
 
 
+def graph_bytes(batch: int, t_pad: int, L: int = FOOTPRINT_READ_PAD,
+                k: int = 16) -> int:
+    """Bytes the step graphs of an unsharded image hold beside their
+    shared pool (whose intermediates are one batch's workspace, counted
+    in IN_FLIGHT): MAX_GRAPHS graphs' static inputs and outputs at the
+    larger tier's, and the output copies of IN_FLIGHT requests of
+    REQUEST_READS reads and of one wide chunk (each replay's meta and
+    flat, copied out before the next replay).  Ids count 4 bytes."""
+    rows0, rows1 = batch_rows(batch, L, k), batch_rows(WIDE_ROWS, L, k)
+    out0 = rows0 * 8 + FLAT_HEADROOM * rows0 * 4           # meta, flat
+    out1 = rows1 * 8 + 2 * min(TIERS[1][1], t_pad) * rows1 * 4
+    held = max(rows0 * (L + 4) + out0, rows1 * (L + 4) + out1)
+    copies = IN_FLIGHT * -(-REQUEST_READS // rows0) * out0 + out1
+    return MAX_GRAPHS * held + copies
+
+
 @dataclasses.dataclass(frozen=True)
 class Footprint:
     """Bytes a dense image and its scans take on one device."""
@@ -151,6 +187,9 @@ class Footprint:
     #: (a few MB) or the pileup counts of a template of a few Mbp (48 B
     #: a base)
     ops: int
+    #: the step graphs' inputs, outputs and output copies (an unsharded
+    #: image: ``graph_bytes``; a sharded one replays no graph)
+    graphs: int = 0
 
     @property
     def workspace(self) -> int:
@@ -158,7 +197,8 @@ class Footprint:
 
     @property
     def total(self) -> int:
-        return self.bits + self.hash + IN_FLIGHT * self.workspace + self.ops
+        return self.bits + self.hash + IN_FLIGHT * self.workspace \
+            + self.ops + self.graphs
 
 
 def dense_footprint(n_lists: int, t_pad: int, hash_bytes: int,
@@ -178,8 +218,9 @@ def dense_footprint(n_lists: int, t_pad: int, hash_bytes: int,
                  zip(TIERS, (batch, WIDE_ROWS)))]
     ws = max(tiers, key=lambda t: sum(t.values()))
     ops = CHAIN_BYTES_A_WINDOW * CHAIN_WINDOWS
+    graphs = graph_bytes(batch, t_pad, L, k) if n_db == 1 else 0
     return tuple(Footprint(n_lists * w * 4, hash_bytes if s == 0 else 0, ws,
-                           ops if s == 0 else 0)
+                           ops if s == 0 else 0, graphs)
                  for s in range(n_db))
 
 
@@ -316,12 +357,18 @@ class DenseIndex:
     #: each shard's footprint and the budget it was held to (from_host)
     footprint: Tuple[Footprint, ...] = ()
     budget: Tuple[int, ...] = ()
+    #: the dense step's graphs (an unsharded image on a CUDA card; None
+    #: elsewhere: that image's scans run eager)
+    graphs: Optional["StepGraphs"] = None
 
     def __post_init__(self):
         if not self.shard_bits:
             self.shard_bits, self.devices = (self.bits,), (self.device,)
         if not self.shard_calls:
             self.shard_calls = [0] * len(self.shard_bits)
+        if self.graphs is None and not self.sharded \
+                and self.device.type == "cuda":
+            self.graphs = StepGraphs()
 
     @classmethod
     def from_host(cls, idx: KmaIndex, device: DeviceLike = None,
@@ -767,6 +814,131 @@ def dense_scan_device(codes, lengths, didx: DenseIndex, *, sparams,
                       flat_cap, small_ids)
 
 
+def graph_key(didx: DenseIndex, shape, statics: dict) -> tuple:
+    """The key of a batch of ``shape`` (B, L) at ``statics`` (the keyword
+    arguments of ``dense_scan_device``): the static arguments of the
+    JAX jit of ``dense_scan_device`` (kma_tpu/mapping/scan_dense.py:
+    565-568: sparams, B, flat_cap, small_ids, the image's mega, size,
+    max_probe, t_pad and n_lists, proxi_frac, merged; its pallas_mode
+    has no counterpart), L, which jit reads from the shape, and the
+    device."""
+    B, L = shape
+    return (statics["sparams"], int(B), statics["flat_cap"],
+            statics["small_ids"], didx.mega, didx.size, didx.max_probe,
+            didx.t_pad, didx.n_lists, statics["proxi_frac"],
+            statics["merged"], int(L), str(didx.device))
+
+
+@dataclasses.dataclass
+class _Graph:
+    graph: object                  # torch.cuda.CUDAGraph
+    codes: torch.Tensor            # static inputs: codes [B, L] uint8,
+    lengths: torch.Tensor          # lengths [B] int32
+    out: Tuple[torch.Tensor, ...]  # static outputs: meta, flat
+    launches: int                  # run_score_rows launches it holds
+
+
+class StepGraphs:
+    """The port's counterpart of the ``jax.jit`` cache of the JAX
+    ``dense_scan_device``: one CUDA graph of the dense step a key of
+    static arguments (``graph_key``).  The first batch of a key captures
+    it (``entry.capture``: WARMUP eager calls, then the capture); every
+    batch, that one too, copies its codes and lengths into the graph's
+    static inputs, replays the graph, and copies its meta and flat out
+    on the card at once, since the next replay of the key overwrites
+    them (the scanner queues every batch of a request before the first
+    sync, and the daemon dispatches request k+1 before it resolves
+    request k).
+
+    An unsharded image on a CUDA card holds one, which the scanners of
+    every penalty set share: the graphs hold the addresses of its
+    ``exist``, ``kv`` and ``bits`` and live no longer than it.  A sharded
+    image has none (one graph spans one device) and runs eager, as do
+    the pair-stream scanner and the ``chain`` op.
+
+    Pool: the graphs share one memory pool (``graph_pool_handle``), so
+    they hold one batch's intermediates at the largest key, not one
+    each.  PyTorch calls a shared pool safe when its graphs replay in
+    the order of their captures; here they replay in any order, which is
+    safe because (1) replays run one at a time on one stream (the
+    daemon's device work is serialised under its op lock), so no two
+    graphs' intermediates are live at once, and (2) a graph's outputs are
+    read only through the copies taken right after its own replay, so
+    another graph whose intermediates reuse blocks freed in an earlier
+    capture cannot clobber an output anyone reads.  The static inputs
+    and the copies are allocated outside the pool.  At MAX_GRAPHS graphs
+    the least recently replayed is dropped.
+
+    A capture that fails raises, and the caller's op faults: nothing runs
+    eager in its place.  ``captures`` and ``replays`` count by key;
+    ``capture_s`` holds each key's last capture time (host clock, the
+    warm-up calls included).  ``capture`` replaces ``entry.capture``
+    (the CPU tests' stand-in)."""
+
+    def __init__(self, capture: Optional[Callable] = None):
+        self._capture = capture
+        self.graphs: "collections.OrderedDict[tuple, _Graph]" = \
+            collections.OrderedDict()
+        self.captures: collections.Counter = collections.Counter()
+        self.replays: collections.Counter = collections.Counter()
+        self.capture_s: Dict[tuple, float] = {}
+        self.pool = None
+
+    def run(self, key: tuple, step: Callable, codes: torch.Tensor,
+            lengths: torch.Tensor, didx: DenseIndex):
+        """(meta, flat) of ``step`` (a pure function of codes, lengths
+        and the image's exist, kv and bits: ``DenseScanner.step``) on
+        this batch, replayed from the key's graph."""
+        g = self.graphs.get(key)
+        if g is None:
+            g = self._capture_key(key, step, codes, lengths, didx)
+        self.graphs.move_to_end(key)
+        g.codes.copy_(codes)
+        g.lengths.copy_(lengths)
+        g.graph.replay()
+        self.replays[key] += 1
+        # a replay runs the kernel launches its graph holds
+        scan_kernel.run_score_rows.launches += g.launches
+        return tuple(t.clone() for t in g.out)
+
+    def _capture_key(self, key, step, codes, lengths, didx) -> _Graph:
+        capture = self._capture
+        if capture is None:
+            from ..entry import capture  # entry.py imports this module
+        if self.pool is None and codes.device.type == "cuda":
+            self.pool = torch.cuda.graph_pool_handle()
+        while len(self.graphs) >= MAX_GRAPHS:
+            self.graphs.popitem(last=False)
+        held = []
+
+        def counted(*args):
+            n0 = scan_kernel.run_score_rows.launches
+            out = step(*args)
+            held.append(scan_kernel.run_score_rows.launches - n0)
+            return out
+
+        args = (codes.clone(), lengths.clone(), didx.exist, didx.kv,
+                didx.bits)
+        t0 = time.perf_counter()
+        graph, out = capture(counted, args, pool=self.pool)
+        self.capture_s[key] = time.perf_counter() - t0
+        # the capture pass recorded its launches; the replays run them
+        scan_kernel.run_score_rows.launches -= held[-1]
+        g = _Graph(graph, args[0], args[1], tuple(out), held[-1])
+        self.graphs[key] = g
+        self.captures[key] += 1
+        return g
+
+    def pool_bytes(self) -> int:
+        """Bytes the graphs' pool holds on the card (the segments
+        ``torch.cuda.memory_snapshot`` gives the pool)."""
+        if self.pool is None:
+            return 0
+        pid = tuple(self.pool)
+        return sum(s["total_size"] for s in torch.cuda.memory_snapshot()
+                   if tuple(s.get("segment_pool_id", ())) == pid)
+
+
 class DenseScanner:
     """Production -1t1 scanner: dense device scan with host fallback.
 
@@ -778,7 +950,8 @@ class DenseScanner:
 
     def __init__(self, idx: KmaIndex, rewards, exhaustive: bool = False,
                  proxi_frac: Optional[float] = None, batch: int = 4096,
-                 flat_headroom: int = 24, mem_budget_bytes: int = None,
+                 flat_headroom: int = FLAT_HEADROOM,
+                 mem_budget_bytes: int = None,
                  didx: Optional[DenseIndex] = None,
                  device: DeviceLike = None,
                  devices: Optional[Sequence[DeviceLike]] = None):
@@ -819,12 +992,40 @@ class DenseScanner:
                 best_cap=bc_, small_ids=self.small_ids)))
         return self._sp_cache[ck]
 
+    def _statics(self, L: int, tier: int, flat_cap: int) -> dict:
+        """``dense_scan_device``'s keyword arguments for a batch padded
+        to L at ``tier``."""
+        return dict(sparams=self._sparams(L, tier), flat_cap=flat_cap,
+                    small_ids=self.small_ids, proxi_frac=self.proxi_frac,
+                    merged=tier == 0)
+
+    def step(self, L: int, tier: int, flat_cap: int) -> Callable:
+        """``dense_scan_device`` of a batch padded to L at ``tier`` as a
+        pure function of (codes, lengths, exist, kv, bits), on the
+        tensors' own device: what a step graph captures
+        (``entry.dense_step`` gives the same function)."""
+        d, statics = self.didx, self._statics(L, tier, flat_cap)
+
+        def fn(codes, lengths, exist, kv, bits):
+            img = dataclasses.replace(d, exist=exist, kv=kv, bits=bits,
+                                      device=bits.device, sharded=False,
+                                      devices=(bits.device,),
+                                      shard_bits=(bits,), shard_calls=[0])
+            return dense_scan_device(codes, lengths, img, **statics)
+
+        return fn
+
     def _call(self, codes_t, lens_t, tier: int, flat_cap: int):
-        return dense_scan_device(
-            codes_t, lens_t, self.didx,
-            sparams=self._sparams(codes_t.shape[1], tier),
-            flat_cap=flat_cap, small_ids=self.small_ids,
-            proxi_frac=self.proxi_frac, merged=(tier == 0))
+        """One batch: replayed from the image's step graphs when it has
+        them, else eager."""
+        L = codes_t.shape[1]
+        statics = self._statics(L, tier, flat_cap)
+        graphs = self.didx.graphs
+        if graphs is None:
+            return dense_scan_device(codes_t, lens_t, self.didx, **statics)
+        return graphs.run(graph_key(self.didx, codes_t.shape, statics),
+                          self.step(L, tier, flat_cap), codes_t, lens_t,
+                          self.didx)
 
     def scan_reads(self, codes: np.ndarray, lengths: np.ndarray):
         """Returns (scores i32 [N], modes u8 [N], tid_lists: list of

@@ -330,3 +330,160 @@ def test_front_and_chain_peaks_on_the_card(cuda, L, tier):
           % (L, tier, f_peak // (2 * B), term // (2 * B), c_peak / (B * W)))
     assert f_peak <= term
     assert c_peak <= tsd.CHAIN_BYTES_A_WINDOW * B * W
+
+
+# -- the dense step's graphs (scan_dense.StepGraphs) -------------------------
+
+def _graph_scanner(dev, seed=11, **kw):
+    """A DenseScanner (batch 256) on a card image of 120 panel templates
+    (families of 1-4 variants; multichip's seed), which replays graphs;
+    reads come from ``seed``."""
+    from kma_tpu_torch.config import Penalties
+    from kma_tpu_torch.mapping import scan_dense as tsd
+    from kma_tpu_torch.parallel.multichip import SEED, _panel, \
+        synthetic_index
+    seqs = _panel(np.random.default_rng(SEED), 120)
+    rng = np.random.default_rng(seed)
+    sc = tsd.DenseScanner(synthetic_index(seqs), Penalties(), batch=256,
+                          device=dev, **kw)
+    assert isinstance(sc.didx.graphs, tsd.StepGraphs)
+    return sc, seqs, rng
+
+
+def _graph_batch(sc, rng, seqs, tier, L):
+    """A batch of the daemon's shape at ``tier``: (codes, lengths on the
+    card, flat_cap)."""
+    from kma_tpu_torch.mapping import scan_dense as tsd
+    from kma_tpu_torch.parallel.multichip import _reads
+    rows = sc.batch if tier == 0 else tsd.WIDE_ROWS
+    c, n = _reads(rng, seqs, rows, L)
+    cap = sc.flat_headroom * rows if tier == 0 \
+        else 2 * min(tsd.TIERS[1][1], sc.didx.t_pad) * rows
+    dev = sc.didx.device
+    return torch.from_numpy(c).to(dev), torch.from_numpy(n).to(dev), cap
+
+
+def _replay_is_eager_and_plain(sc, c, n, tier, cap):
+    """One batch through the scanner (a replay) against the eager step
+    on the card and the plain step on CPU copies: bit for bit."""
+    from kma_tpu_torch.mapping import scan_dense as tsd
+    d, L = sc.didx, c.shape[1]
+    got = sc._call(c, n, tier, cap)
+    eager = tsd.dense_scan_device(c, n, d, **sc._statics(L, tier, cap))
+    plain = sc.step(L, tier, cap)(c.cpu(), n.cpu(), d.exist.cpu(),
+                                  d.kv.cpu(), d.bits.cpu())
+    torch.cuda.synchronize()
+    for x, y, z in zip(got, eager, plain):
+        assert x.dtype == z.dtype
+        assert torch.equal(x, y) and torch.equal(x.cpu(), z)
+    return got
+
+
+def test_graphs_replay_out_of_capture_order(cuda):
+    """Tier 0 and tier 1 at L 128 and 192, captured in that order into one
+    shared pool, then replayed in other orders on new reads: every
+    replay equals the eager step and the plain version bit for bit, no
+    key is captured twice, and each replay counts its kernel launch."""
+    from kma_tpu_torch.ops import scan_kernel as sk
+    sc, seqs, rng = _graph_scanner(cuda)
+    g = sc.didx.graphs
+    keys = [(0, 128), (1, 128), (0, 192), (1, 192)]
+    for tier, L in keys:
+        c, n, cap = _graph_batch(sc, rng, seqs, tier, L)
+        sc._call(c, n, tier, cap)
+    assert len(g.graphs) == 4 and g.pool is not None
+    n0 = sk.run_score_rows.launches
+    mapped = 0
+    for tier, L in keys[::-1] + [keys[0], keys[3], keys[1], keys[2]]:
+        c, n, cap = _graph_batch(sc, rng, seqs, tier, L)
+        meta, _ = _replay_is_eager_and_plain(sc, c, n, tier, cap)
+        mapped += int(((meta[:, 1] & 3) != 0).sum())
+    assert mapped > 0
+    assert sum(g.captures.values()) == 4
+    # 8 replays (one launch each) and 8 eager steps
+    assert sk.run_score_rows.launches == n0 + 16
+    assert g.pool_bytes() > 0
+
+
+@pytest.mark.parametrize("kw", [dict(proxi_frac=0.9),
+                                dict(exhaustive=True)])
+def test_proxi_and_exhaustive_steps_replay(cuda, kw):
+    """The proxi epilogue and the exhaustive front half hold no host sync:
+    captured, their replays equal the eager step and the plain version."""
+    sc, seqs, rng = _graph_scanner(cuda, seed=12, **kw)
+    for tier in (0, 1):
+        for _ in range(2):
+            c, n, cap = _graph_batch(sc, rng, seqs, tier, 128)
+            _replay_is_eager_and_plain(sc, c, n, tier, cap)
+    assert sum(sc.didx.graphs.captures.values()) == 2
+
+
+def test_two_requests_dispatched_before_either_resolves(cuda):
+    """Two 600-read requests (three batches of one key each) dispatched
+    before the first resolves, as the daemon pipelines them: each equals
+    the plain scanner on the CPU."""
+    from kma_tpu_torch.config import Penalties
+    from kma_tpu_torch.mapping import scan_dense as tsd
+    from kma_tpu_torch.parallel.multichip import _reads, synthetic_index
+    sc, seqs, rng = _graph_scanner(cuda, seed=13)
+    reqs = [_reads(rng, seqs, 600, 128) for _ in range(2)]
+    handles = [sc.scan_dispatch(c, n) for c, n in reqs]
+    got = [sc.scan_resolve(h) for h in handles]
+    plain = tsd.DenseScanner(synthetic_index(seqs), Penalties(), batch=256,
+                             device="cpu")
+    for (c, n), a in zip(reqs, got):
+        b = plain.scan_reads(c, n)
+        for x, y in zip(a[:2] + a[3:], b[:2] + b[3:]):
+            assert np.array_equal(x, y)
+        for x, y in zip(a[2], b[2]):
+            assert (x is None) == (y is None)
+            assert x is None or np.array_equal(x, y)
+        assert (a[1] != 0).sum() > 300
+    assert max(sc.didx.graphs.replays.values()) >= 6
+
+
+def test_failed_capture_faults_the_dense_op(cuda, tmp_path, monkeypatch):
+    """A dense step that syncs the host cannot be captured: the daemon's
+    dense request answers ``ok: 0``, counts a fault, and no graph is
+    kept (nothing runs eager in its place)."""
+    import subprocess
+    import sys
+    import threading
+    from pathlib import Path
+
+    from kma_tpu_torch import devserve
+    from kma_tpu_torch.config import Penalties
+    from kma_tpu_torch.mapping import scan_dense as tsd
+    from kma_tpu_torch.parallel.multichip import SEED, _panel, _reads
+    seqs = _panel(np.random.default_rng(SEED), 60)
+    rng = np.random.default_rng(14)
+    fasta, prefix = tmp_path / "db.fsa", str(tmp_path / "db")
+    fasta.write_text("".join(">t%d\n%s\n" % (i, "".join("ACGT"[x] for x in s))
+                             for i, s in enumerate(seqs)))
+    subprocess.run([sys.executable, "-m", "kma_tpu", "index", "-i",
+                    str(fasta), "-o", prefix], check=True,
+                   cwd=Path(__file__).resolve().parent.parent,
+                   capture_output=True)
+    srv = devserve.TorchDevServer(prefix, batch=64, device=cuda)
+    assert srv.graphs is not None
+    real = tsd.dense_scan_device
+
+    def syncs(codes, *a, **k):
+        int(codes.sum())        # a host sync: refused while capturing
+        return real(codes, *a, **k)
+
+    monkeypatch.setattr(tsd, "dense_scan_device", syncs)
+    sock = str(tmp_path / "d.sock")
+    up = threading.Event()
+    th = threading.Thread(target=srv.serve, daemon=True, kwargs={
+        "sock_path": sock, "ready_cb": up.set})
+    th.start()
+    assert up.wait(30)
+    cli = devserve.DevClient.connect(prefix, sock_path=sock)
+    c, n = _reads(rng, seqs, 40, 128)
+    with pytest.raises(RuntimeError, match="devserve error"):
+        cli.dense_scan(c, n, Penalties(), False, None)
+    cli.stop()
+    th.join(timeout=30)
+    assert srv.faults == {"dense": 1}
+    assert not srv.graphs.graphs and not srv.graphs.replays

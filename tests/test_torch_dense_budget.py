@@ -227,7 +227,11 @@ def test_image_terms_are_its_tensors(family, n):
         assert f.hash == (d.exist.nbytes + d.kv.nbytes if s == 0 else 0)
         assert f.ops == (tsd.CHAIN_BYTES_A_WINDOW * tsd.CHAIN_WINDOWS
                          if s == 0 else 0)
-        assert f.total == f.bits + f.hash + 2 * f.workspace + f.ops
+        # the step graphs' inputs, outputs and copies: one device only
+        assert f.graphs == (tsd.graph_bytes(64, d.t_pad, k=d.kmersize)
+                            if n == 1 else 0)
+        assert f.total == f.bits + f.hash + 2 * f.workspace + f.ops \
+            + f.graphs
     ws = [sum(tsd.batch_workspace(
         2 * rows, min(rc, tsd.FOOTPRINT_READ_PAD - d.kmersize + 1),
         d.t_pad // n, d.t_pad, bc, tier == 0,
