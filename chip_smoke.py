@@ -78,15 +78,20 @@ non-zero):
     torch.profiler's device time) beside its bound; two dense
     requests are profiled (host-clock stages, torch.profiler busy share
     and top kernels).  Then the same DB under ``KMA_TPU_DENSE_BUDGET_MB=0``
-    must be served by the pair-stream scanner: both CLIs' ``-1t1``
+    must be served by the pair-stream scanner, whose ``warm()`` captures
+    its step graphs of tier 0 and the wide tier: both CLIs' ``-1t1``
     again, byte-identical to ``-device off`` (the dense op's medians
-    printed beside the dense scanner's), and the native default mode,
+    printed beside the dense scanner's; both tiers' graphs must be
+    replayed; peak device memory and the graphs' pool printed beside
+    the card's), and the native default mode,
     whose ``chain`` request the daemon refuses, byte-identical to
     ``-device off`` after the host scan takes over (``devserve lost``);
     these runs are held against the dense part's ``-device off``
     outputs;
     one tier-0 ``fast_scan_device`` batch on the card against the same
-    call on the CPU, and one wide-tier chunk, are timed.  It prints the
+    call on the CPU, and that batch and one wide-tier chunk replayed
+    from the daemon's graphs against their eager calls, are timed.  It
+    prints the
     index build time, reads/s, the overflow and wide-tier shares and the
     CLI runs' native stage seconds (``KMA_RUN_PROF=1``);
 (f) a DB sharded over the cards: a panel in phase (c)'s shape (families
@@ -809,12 +814,12 @@ def with_budget_mb(mb, build):
 
 
 def graph_keys(graphs):
-    """Each step graph of a daemon: its tier, B and L, capture seconds and
-    replays."""
+    """Each step graph of a daemon (dense or pair-stream): its tier, B and
+    L, capture seconds and replays."""
     return "; ".join(
         "tier %d B %d L %d (captured in %.3f s, %d replays)"
-        % (0 if k[10] else 1, k[1], k[11], graphs.capture_s[k],
-           graphs.replays[k]) for k in graphs.graphs) or "none"
+        % (k.tier, k.B, k.L, graphs.capture_s[k], graphs.replays[k])
+        for k in graphs.graphs) or "none"
 
 
 def med(xs):
@@ -1038,9 +1043,10 @@ def phase_e_big_db(torch, np, work, env, env_off, py_cli, native_ran, gpu,
                           gpu)
     profile_dense_op(torch, srv, codes_cg, lens_cg, gpu)
     stop_daemon(o("cg"), serve, "cgMLST dense daemon", srv)
-    del srv, d, scs
+    del srv, d, scs, graphs
     gc.collect()
     torch.cuda.empty_cache()
+    base_reserved = torch.cuda.memory_reserved(dev)
 
     # the pair-stream scanner, forced by an explicit budget of 0
     t0 = time.time()
@@ -1051,16 +1057,32 @@ def phase_e_big_db(torch, np, work, env, env_off, py_cli, native_ran, gpu,
         fail("a budget of 0 left the cgMLST DB on the %s scanner"
              % ps.scanner_kind)
     pd = ps.didx
-    say("pair-stream image under a budget of 0: %.1f MB; built in %.1f s"
-        "  [%s]" % (sum(x.numel() * x.element_size()
-                        for x in (pd.exist, pd.kv, pd.values)) / 2 ** 20,
-                    t_ps, gpu))
+    layout = "megaMap" if pd.mega else ("cuckoo" if pd.max_probe == 0
+                                        else "open murmur table")
+    say("pair-stream image under a budget of 0: %.1f MB, %s layout, "
+        "max_probe %d, size %d; built in %.1f s  [%s]"
+        % (sum(x.numel() * x.element_size()
+               for x in (pd.exist, pd.kv, pd.values)) / 2 ** 20, layout,
+           pd.max_probe, pd.size, t_ps, gpu))
+    t0 = time.time()
     ps.warm([192], verbose=False)
+    pg = ps.graphs
+    if pg is None or {k.tier for k in pg.graphs} != {0, 1}:
+        fail("the pair-stream daemon holds no tier-0 and wide-tier step "
+             "graphs after warm(): %s" % (None if pg is None
+                                          else graph_keys(pg)))
+    say("pair-stream daemon warmed (L 192, both tiers) in %.1f s; step "
+        "graphs %s; pool %.1f MB  [%s]"
+        % (time.time() - t0, graph_keys(pg), pg.pool_bytes() / 2 ** 20,
+           gpu))
     serve = serve_thread(ps, socket_path(o("cg")), "pair-stream daemon")
+    # the pair-stream -1t1 path: counts from zero
     ps.requests.clear()
     ps.dense_ms.clear()
+    pg.replays.clear()
     for sc in ps.scanners.values():
         sc.tier0_batches = sc.tier0_spills = sc.wide_reads = 0
+    torch.cuda.reset_peak_memory_stats(dev)
     ps_by_cli = {}
     for name, cmd in clis:
         tag = "ps_" + name.split()[0]
@@ -1077,6 +1099,26 @@ def phase_e_big_db(torch, np, work, env, env_off, py_cli, native_ran, gpu,
             "requests (dense scanner: %.2f ms over %d); -device on %.2f s"
             % (name, med(ms), len(ms), med(dense_by_cli[name]),
                len(dense_by_cli[name]), on))
+    ps_replays = {t: sum(n for k, n in pg.replays.items() if k.tier == t)
+                  for t in (0, 1)}
+    ps_mem = dict(peak=torch.cuda.max_memory_allocated(dev),
+                  reserved=torch.cuda.max_memory_reserved(dev),
+                  base=base_reserved,
+                  pool=pg.pool_bytes(),
+                  card=torch.cuda.get_device_properties(dev).total_memory,
+                  evictions=pg.evictions, graphs=graph_keys(pg))
+    say("cgMLST -1t1 path counts on the pair-stream daemon: requests %s; "
+        "step graphs %s; replays tier 0 %d, wide tier %d; evictions %d; "
+        "peak device memory %.1f MB allocated, %.1f MB reserved (the "
+        "graphs' pool %.1f MB of it; %.1f MB was reserved before the "
+        "image was built) of the card's %.1f MB  [%s]"
+        % (dict(ps.requests), ps_mem["graphs"], ps_replays[0],
+           ps_replays[1], pg.evictions, ps_mem["peak"] / 2 ** 20,
+           ps_mem["reserved"] / 2 ** 20, ps_mem["pool"] / 2 ** 20,
+           base_reserved / 2 ** 20, ps_mem["card"] / 2 ** 20, gpu))
+    if ps_replays[0] <= 0 or ps_replays[1] <= 0:
+        fail("the pair-stream -1t1 runs replayed no tier-0 or no "
+             "wide-tier step graph (replays %s)" % ps_replays)
     ps_chain_wall = None
     if native_ran:
         # the pair-stream daemon refuses the default mode's chain
@@ -1103,18 +1145,18 @@ def phase_e_big_db(torch, np, work, env, env_off, py_cli, native_ran, gpu,
     pscs = list(ps.scanners.values())
     ps_stats = {k: sum(getattr(sc, k) for sc in pscs)
                 for k in ("tier0_batches", "tier0_spills", "wide_reads")}
-    fs_ms, fs_cpu_ms = time_fast_scan(torch, np, ps, codes_cg[:2048],
-                                      lens_cg[:2048], gpu)
+    fs = time_fast_scan(torch, np, ps, codes_cg[:2048], lens_cg[:2048],
+                        gpu)
     stop_daemon(o("cg"), serve, "pair-stream daemon", ps)
     return dict(t_index=t_index, walls=walls, chain_walls=chain_walls,
                 scanned=scanned, overflow=overflow, stats=stats,
                 dense_by_cli=dense_by_cli, ps_by_cli=ps_by_cli,
                 ps_stats=ps_stats, ps_chain_wall=ps_chain_wall,
+                ps_replays=ps_replays, ps_mem=ps_mem, fs=fs,
                 chain_ms=chain_ms, n_reads=n_reads,
                 peak=peak, reserved=reserved, pool=pool,
                 footprint=fp.total, budget=budget,
-                launches=cg_runs, kern=kern, fs_ms=fs_ms,
-                fs_cpu_ms=fs_cpu_ms, **shape)
+                launches=cg_runs, kern=kern, **shape)
 
 
 def cg_codes(np, fq, n):
@@ -1131,9 +1173,12 @@ def cg_codes(np, fq, n):
 
 
 def time_fast_scan(torch, np, srv, codes, lengths, gpu):
-    """CUDA-event ms of one tier-0 fast_scan_device batch (B 2048, the
-    daemon's batch; L 192, a 150 bp read's pad) against the same call
-    on the CPU, which must give the same meta and flat."""
+    """One tier-0 fast_scan_device batch (B 2048, the daemon's batch; L
+    192, a 150 bp read's pad) eager on the card against the same call on
+    the CPU, which must give the same meta and flat; then that batch and
+    one wide-tier chunk (B 512) replayed from the daemon's step graphs
+    (``sc._call``, its copies included), each equal to its eager call:
+    CUDA-event ms (mean of 10) of each, eager and replayed."""
     from kma_tpu_torch import kernel_bench as kb
     from kma_tpu_torch.mapping import scan_fast as tsf
     from kma_tpu_torch.mapping.device_index import DeviceIndex
@@ -1141,12 +1186,21 @@ def time_fast_scan(torch, np, srv, codes, lengths, gpu):
     B, L = codes.shape
     sc = next(iter(srv.scanners.values()))
     d = srv.didx
-    kw = dict(sparams=sc.params[0], flat_cap=8 * B)
     ct = torch.from_numpy(codes).to(d.device)
     lt = torch.from_numpy(lengths).to(d.device)
-    card = lambda: tsf.fast_scan_device(ct, lt, d, **kw)  # noqa: E731
-    ms = kb.cuda_ms(torch, card, 10)
-    meta, flat = card()
+    out = {}
+    for tier, rows, cap in ((0, B, 8 * B),
+                            (1, 512, 512 * 2 * sc.TIERS[1][2])):
+        c, n, kw = ct[:rows], lt[:rows], sc._statics(tier, cap)
+        eager = lambda: tsf.fast_scan_device(c, n, d, **kw)  # noqa: E731
+        replay = lambda: sc._call(c, n, tier, cap)  # noqa: E731
+        for x, y in zip(eager(), replay()):
+            if not torch.equal(x, y):
+                fail("fast_scan_device tier %d: the daemon's replay "
+                     "differs from the eager step" % tier)
+        out[tier] = (kb.cuda_ms(torch, eager, 10),
+                     kb.cuda_ms(torch, replay, 10))
+    meta, flat = tsf.fast_scan_device(ct, lt, d, **sc._statics(0, 8 * B))
     cpu_d = DeviceIndex.from_jax_arrays(
         "cpu", exist=d.exist.cpu().numpy(), kv=d.kv.cpu().numpy(),
         values=d.values.cpu().numpy(), kmersize=d.kmersize, mlen=d.mlen,
@@ -1156,22 +1210,22 @@ def time_fast_scan(torch, np, srv, codes, lengths, gpu):
     t0 = time.perf_counter()
     cmeta, cflat = tsf.fast_scan_device(torch.from_numpy(codes),
                                         torch.from_numpy(lengths), cpu_d,
-                                        **kw)
+                                        **sc._statics(0, 8 * B))
     cpu_ms = 1e3 * (time.perf_counter() - t0)
     if not (torch.equal(meta.cpu(), cmeta) and torch.equal(flat.cpu(),
                                                             cflat)):
         fail("fast_scan_device on the card disagrees with the CPU")
     n_out = int((cmeta[:, 1] >> 3).sum())
-    say("fast_scan_device tier 0, B %d L %d (cgMLST reads): card %.3f ms "
-        "(CUDA events, mean of 10), CPU %.1f ms, same meta and flat; "
-        "%d ids, %d flagged overflow  [%s]"
-        % (B, L, ms, cpu_ms, n_out, int(((cmeta[:, 1] >> 2) & 1).sum()),
-           gpu))
-    wide = lambda: sc._call(ct[:512], lt[:512], 1,  # noqa: E731
-                            512 * 2 * sc.TIERS[1][2])
-    say("fast_scan_device wide tier, B 512 L %d: card %.3f ms (CUDA "
-        "events, mean of 10)  [%s]" % (L, kb.cuda_ms(torch, wide, 10), gpu))
-    return ms, cpu_ms
+    say("fast_scan_device tier 0, B %d L %d (cgMLST reads): card eager "
+        "%.3f ms, replayed %.3f ms (CUDA events, mean of 10), CPU %.1f ms, "
+        "same meta and flat; %d ids, %d flagged overflow  [%s]"
+        % (B, L, out[0][0], out[0][1], cpu_ms, n_out,
+           int(((cmeta[:, 1] >> 2) & 1).sum()), gpu))
+    say("fast_scan_device wide tier, B 512 L %d: card eager %.3f ms, "
+        "replayed %.3f ms (CUDA events, mean of 10)  [%s]"
+        % (L, out[1][0], out[1][1], gpu))
+    return dict(t0_ms=out[0][0], t0_replay_ms=out[0][1],
+                wide_ms=out[1][0], wide_replay_ms=out[1][1], cpu_ms=cpu_ms)
 
 
 def profile_dense_op(torch, srv, codes, lengths, gpu, req=4096):
@@ -1691,12 +1745,24 @@ def report_e(cg, gpu):
     say("cgMLST dense image: V %d, t_pad %d, footprint %.1f MB, budget "
         "read %.1f MB, built in %.1f s; peak device memory of the -1t1 "
         "runs %.1f MB allocated, %.1f MB reserved (the step graphs' pool "
-        "%.1f MB); index build %.1f s; pair-stream fast_scan_device tier 0 "
-        "card %.3f ms, CPU %.1f ms  [%s]"
+        "%.1f MB); index build %.1f s  [%s]"
         % (cg["V"], cg["t_pad"], cg["footprint"] / 2 ** 20,
            cg["budget"] / 2 ** 20, cg["build_s"], cg["peak"] / 2 ** 20,
            cg["reserved"] / 2 ** 20, cg["pool"] / 2 ** 20, cg["t_index"],
-           cg["fs_ms"], cg["fs_cpu_ms"], gpu))
+           gpu))
+    fs, pm, pr = cg["fs"], cg["ps_mem"], cg["ps_replays"]
+    say("cgMLST pair-stream daemon: fast_scan_device tier 0 (B 2,048) "
+        "eager %.3f ms, replayed %.3f ms, CPU %.1f ms; wide chunk (B 512) "
+        "eager %.3f ms, replayed %.3f ms; the -1t1 runs replayed %d tier-0 "
+        "and %d wide-tier batches (step graphs %s; %d evictions); peak "
+        "device memory %.1f MB allocated, %.1f MB reserved (the graphs' "
+        "pool %.1f MB; %.1f MB reserved before the image) of the card's "
+        "%.1f MB  [%s]"
+        % (fs["t0_ms"], fs["t0_replay_ms"], fs["cpu_ms"], fs["wide_ms"],
+           fs["wide_replay_ms"], pr[0], pr[1], pm["graphs"],
+           pm["evictions"], pm["peak"] / 2 ** 20, pm["reserved"] / 2 ** 20,
+           pm["pool"] / 2 ** 20, pm["base"] / 2 ** 20, pm["card"] / 2 ** 20,
+           gpu))
 
 
 # -- (g) the production dense step captured whole in a CUDA graph ----------

@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """The daemon's ``dense`` op of two checkouts of kma_tpu_torch on one
 card, on the gene panel and the cgMLST-shaped scheme of
-``chip_smoke.py``, so that versions compare inside one call (parent,
-change, change, parent)::
+``chip_smoke.py``, the scheme twice: on the dense scanner and, under
+``KMA_TPU_DENSE_BUDGET_MB=0``, on the pair-stream scanner (the image of a
+DB past the card's dense budget), so that versions compare inside one
+call (parent, change, change, parent)::
 
     python3 dense_ab.py --tree A_DIR --tree B_DIR [--order ABBA]
                         [--passes 5] [--out FILE]
@@ -12,7 +14,8 @@ the panel of 2,250 templates and its 20,000 100 bp reads; the scheme of
 3,002 loci x 40 alleles and 50,000 150 bp reads, indexed by ``python -m
 kma_tpu index`` run as a program), then for every tree in the order
 given and each DB runs one child process whose ``kma_tpu_torch`` is that
-tree's.  The child builds a ``TorchDevServer`` on the card (batch
+tree's (the pair-stream DB's child gets the budget of 0 in its
+environment).  The child builds a ``TorchDevServer`` on the card (batch
 2,048), warms it at the DB's read pad (L 128 or 192) and drives the
 dense op as the native client does on the card: requests of 16,384 reads
 (``KMA_DEVSLICE``), each dispatched before the previous one resolves
@@ -22,11 +25,14 @@ daemon records it (``dense_ms``: dispatch plus resolve, host clock);
 one more pass runs under torch.profiler for the device busy share (the
 union of device events' intervals over the pass's wall) and the device
 events a request.  Each child prints one JSON line: the card's name and
-power limit, the DB's shape, the footprint, the ms (median, min, max,
-every sample), the busy share, peak device memory allocated and
-reserved over the passes, the kernel launches and, where the tree's
-daemon has step graphs, their keys, capture seconds, replays and pool
-bytes.  The lines also go to ``--out`` (JSON lines, default
+power limit, the DB's shape (the dense image's V, t_pad and footprint;
+the pair-stream image's layout and max_probe), the scanner, the ms
+(median, min, max, every sample), the busy share, peak device memory
+allocated and reserved over the passes, the kernel launches, the
+scanners' tier-0 batches, whole-batch retries, wide reads and wide
+chunks over the passes and, where the tree's daemon has step graphs,
+their keys, capture seconds, replays, evictions and pool bytes.  The
+lines also go to ``--out`` (JSON lines, default
 ``build/dense_ab.jsonl``).
 """
 
@@ -44,6 +50,9 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 #: reads a request (the card's KMA_DEVSLICE, kma_tpu_torch/envelope.py)
 SLICE = 16384
+#: the cells whose daemon is held under a dense budget of 0, so that it
+#: serves the DB with the pair-stream scanner
+PAIR_STREAM = ("cgmlst_pair_stream",)
 
 CHILD = r"""
 import json, sys, time
@@ -52,6 +61,22 @@ import torch
 from kma_tpu_torch.devserve import (TorchDevServer, kernel_launches,
                                     reset_kernel_launches)
 from kma_tpu_torch.config import Penalties
+from kma_tpu_torch.mapping import scan_dense, scan_fast
+
+# wide chunks a pass sends, counted where each scanner takes them
+chunks = [0]
+
+
+def counting(wide_chunks):
+    def wrapped(*a, **k):
+        for x in wide_chunks(*a, **k):
+            chunks[0] += 1
+            yield x
+    return wrapped
+
+
+for mod in (scan_dense, scan_fast):
+    mod.wide_chunks = counting(mod.wide_chunks)
 
 db, reads, L, passes, label = sys.argv[1:6]
 L, passes = int(L), int(passes)
@@ -83,17 +108,26 @@ def one_pass():
 
 
 graphs = getattr(srv, "graphs", None)
+STATS = ("tier0_batches", "tier0_spills", "wide_reads")
 one_pass()                                  # first sight of every shape
 torch.cuda.synchronize()
 srv.dense_ms.clear()
 reset_kernel_launches()
 if graphs is not None:
     graphs.replays.clear()
+for sc in srv.scanners.values():
+    for k in STATS:
+        if hasattr(sc, k):
+            setattr(sc, k, 0)
+chunks[0] = 0
 torch.cuda.reset_peak_memory_stats(dev)
 for _ in range(passes):
     one_pass()
 torch.cuda.synchronize()
 ms = list(srv.dense_ms)
+stats = {k: sum(getattr(sc, k) for sc in srv.scanners.values())
+         for k in STATS if all(hasattr(sc, k) for sc in srv.scanners.values())}
+stats["wide_chunks"] = chunks[0]
 peak = torch.cuda.max_memory_allocated(dev)
 reserved = torch.cuda.max_memory_reserved(dev)
 launches = kernel_launches()
@@ -112,11 +146,25 @@ for a, b in spans:
     if b > end:
         busy += b - max(a, end)
         end = b
-fp = srv.didx.footprint[0]
+d = srv.didx
+fp = d.footprint[0] if srv.scanner_kind == "dense" else None
+
+
+def shape(k):
+    # (tier, B, L) of a key: named fields, or a dense key of before them
+    if hasattr(k, "tier"):
+        return k.tier, k.B, k.L
+    return (0 if k[10] else 1), k[1], k[11]
+
+
 s = sorted(ms)
 print(json.dumps({
     "label": label, "db": db.rsplit("/", 1)[-1], "L": L,
-    "V": srv.didx.n_lists, "t_pad": srv.didx.t_pad,
+    "scanner": srv.scanner_kind,
+    "V": getattr(d, "n_lists", None), "t_pad": getattr(d, "t_pad", None),
+    "layout": None if fp is not None else (
+        "mega" if d.mega else "cuckoo" if d.max_probe == 0 else "open"),
+    "max_probe": d.max_probe,
     "requests_a_pass": len(reqs), "reads": int(len(codes)),
     "passes": passes, "build_s": t_build, "warm_s": t_warm,
     "dense_ms_median": s[len(s) // 2], "dense_ms_min": s[0],
@@ -125,14 +173,20 @@ print(json.dumps({
     "busy_share": (busy / 1e3 / wall) if ev else None,
     "device_events_a_request": len(ev) / len(reqs),
     "peak_allocated_mb": peak / 2 ** 20, "peak_reserved_mb": reserved / 2 ** 20,
-    "footprint_mb": fp.total / 2 ** 20,
-    "footprint_graphs_mb": getattr(fp, "graphs", 0) / 2 ** 20,
-    "workspace_mb": fp.workspace / 2 ** 20,
+    "card_mb": torch.cuda.get_device_properties(dev).total_memory / 2 ** 20,
+    "footprint_mb": None if fp is None else fp.total / 2 ** 20,
+    "footprint_graphs_mb": None if fp is None
+    else getattr(fp, "graphs", 0) / 2 ** 20,
+    "workspace_mb": None if fp is None else fp.workspace / 2 ** 20,
     "kernel_launches": launches,
+    "scan_stats": stats,
     "graph_replays": replays,
     "graphs": None if graphs is None else [
-        {"tier": 0 if k[10] else 1, "B": k[1], "L": k[11],
-         "capture_s": graphs.capture_s[k]} for k in graphs.graphs],
+        dict(zip(("tier", "B", "L"), shape(k)),
+             capture_s=graphs.capture_s[k], replays=graphs.replays[k])
+        for k in graphs.graphs],
+    "evictions": None if graphs is None
+    else getattr(graphs, "evictions", None),
     "pool_mb": None if graphs is None else graphs.pool_bytes() / 2 ** 20,
     "faults": dict(srv.faults),
 }))
@@ -162,7 +216,8 @@ def fastq_codes(np, path, L):
 
 
 def build_data(np, sm, work):
-    """[(name, DB prefix, reads .npz, L)] of the panel and the scheme."""
+    """[(name, DB prefix, reads .npz, L)] of the panel and the scheme,
+    the scheme twice (dense, then pair-stream: ``PAIR_STREAM``)."""
     env = sm.front_end_env(work)
     py_cli = [sys.executable, "-m", "kma_tpu"]
     o = lambda n: os.path.join(work, n)  # noqa: E731
@@ -181,6 +236,7 @@ def build_data(np, sm, work):
     c, n = fastq_codes(np, o("cg.fq"), 192)
     np.savez(o("cg.npz"), codes=c, lengths=n)
     out.append(("cgmlst", o("cg"), o("cg.npz"), 192))
+    out.append(("cgmlst_pair_stream", o("cg"), o("cg.npz"), 192))
     print("# dense_ab: data built in %.1f s" % (time.time() - t0),
           file=sys.stderr, flush=True)
     return out
@@ -214,6 +270,8 @@ def main() -> int:
         for name, db, reads, L in data:
             for t in a.order:
                 env = dict(os.environ, PYTHONPATH=trees[t])
+                if name in PAIR_STREAM:
+                    env["KMA_TPU_DENSE_BUDGET_MB"] = "0"
                 r = subprocess.run(
                     [sys.executable, "-c", child, db, reads, str(L),
                      str(a.passes), t], cwd=trees[t], env=env,

@@ -29,12 +29,12 @@ pair-stream scanner (``mapping/scan_fast.py``).  Its ``dense`` op runs
 on the device; its ``chain`` op is refused, so chain clients take the
 host.
 
-On a CUDA card the unsharded dense image's ``dense`` op replays one
-captured CUDA graph of the dense step a static shape
-(``scan_dense.StepGraphs``, the counterpart of the JAX jit cache);
-``warm()`` captures the hot shapes, and ``graphs`` counts captures and
-replays by key.  The sharded image, the pair-stream scanner and the
-other ops run eager.
+On a CUDA card the ``dense`` op of the unsharded dense image and of the
+pair-stream image replays one captured CUDA graph of the scan step a
+static shape (``scan_dense.StepGraphs``, the counterpart of the JAX jit
+cache), at tier 0 and at the wide tier; ``warm()`` captures the hot
+shapes, and ``graphs`` counts captures and replays by key.  The sharded
+image and the other ops run eager.
 
 An op that raises answers ``{ok: 0, err}`` and the daemon lives on, as
 the JAX daemon does; the client's host takes the work over.  A
@@ -366,11 +366,11 @@ class TorchDevServer:
 
     @property
     def graphs(self):
-        """The dense step's graphs (``scan_dense.StepGraphs``): captures
-        and replays by key, on an unsharded dense image on a CUDA card;
-        None where the dense op runs eager (the CPU, a sharded image,
-        the pair-stream scanner)."""
-        return self.didx.graphs if self.scanner_kind == "dense" else None
+        """The scan step's graphs (``scan_dense.StepGraphs``): captures
+        and replays by key, on an unsharded dense image or the
+        pair-stream image on a CUDA card; None where the dense op runs
+        eager (the CPU, a sharded image)."""
+        return self.didx.graphs
 
     # -- ops ---------------------------------------------------------------
 
@@ -511,8 +511,9 @@ class TorchDevServer:
         """Build the kernels and run the hot shapes once, tier 0 and tier
         1 at each of ``lengths`` (the JAX daemon compiles them), so the
         first client batch pays no build or allocator warm-up: on a CUDA
-        card that captures the dense step's graphs of those shapes
-        (``graphs``), as the JAX ``warm()`` compiles its jit."""
+        card that captures the scan step's graphs of those shapes, tier
+        0 and the wide tier of either scanner (``graphs``), as the JAX
+        ``warm()`` compiles its jits."""
         rng = np.random.default_rng(0)
         sc = self._scanner({"M": self._default_pen.M,
                             "MM": self._default_pen.MM,

@@ -48,8 +48,9 @@ def request_line(srv: TorchDevServer) -> str:
     """``dense 10, chain 0, nw_qext 1 requests on cuda:0, graphs 2
     (replays 40), faults 0``, or ``..., faults dense 2
     (RuntimeError('...'))`` (``fault_line``).  ``graphs N (replays M)``,
-    where the dense op replays graphs (``srv.graphs``): N graphs of the
-    dense step captured, M batches replayed from them."""
+    where the dense op replays graphs (``srv.graphs``: a dense or
+    pair-stream image on a card): N graphs of the scan step captured, M
+    batches replayed from them."""
     ops = list(REPORTED_OPS) + sorted(
         op for op, n in srv.requests.items()
         if n and op not in REPORTED_OPS + ("hello", "dense_pipelined"))

@@ -13,19 +13,23 @@ so key comparisons go through ``as_i32``.
 the values OFFSET of a k-mer's template list, and ``values`` holds the
 flat ``[count, t1..tn]`` lists as on disk, so its size follows the DB's
 k-mer count and not lists x templates as the dense membership table's
-does.
+does.  On a CUDA card the image holds the pair-stream step's graphs
+(``step_graphs``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import TYPE_CHECKING, Callable, Optional
 
 import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve
 from ..index.format import KmaIndex
+
+if TYPE_CHECKING:
+    from .scan_dense import StepGraphs
 
 MURMUR_SEED = np.uint32(3323198485 & 0xFFFFFFFF)
 MURMUR_SEED2 = np.uint32(0x9747B28C)
@@ -103,7 +107,11 @@ class DeviceIndex:
     values offset), the two-table cuckoo (``max_probe == 0``, ``kv``
     holds both halves) or, when the cuckoo walk fails, the open murmur
     table (``exist[bucket]`` is the bucket's first ``kv`` record and a
-    lookup walks up to ``max_probe`` records)."""
+    lookup walks up to ``max_probe`` records).
+
+    On a CUDA card it holds ``graphs``, the pair-stream step's graphs
+    (``step_graphs``), which the scanners of every penalty set share;
+    on the CPU none (its scans run eager)."""
 
     kmersize: int
     mlen: int
@@ -118,6 +126,11 @@ class DeviceIndex:
     max_list: int             # most templates of one k-mer
     max_probe: int = 1        # 0 = cuckoo; else the longest bucket group
     device: torch.device = torch.device("cpu")
+    graphs: Optional[StepGraphs] = None
+
+    def __post_init__(self):
+        if self.graphs is None and self.device.type == "cuda":
+            self.graphs = step_graphs()
 
     @classmethod
     def from_host(cls, idx: KmaIndex,
@@ -202,6 +215,15 @@ class DeviceIndex:
                    null_index=int(null_index), exist=t(exist), kv=t(kv),
                    values=t(values), max_list=int(max_list),
                    max_probe=int(max_probe), device=device)
+
+
+def step_graphs(capture: Optional[Callable] = None):
+    """A graph cache for the pair-stream step (``scan_dense.StepGraphs``
+    of a step that reads the image's ``exist``, ``kv`` and ``values`` and
+    launches no hand-written kernel); ``capture`` as there."""
+    from .scan_dense import StepGraphs   # scan_dense imports this module
+    return StepGraphs(capture, tensors=("exist", "kv", "values"),
+                      kernels=())
 
 
 def lookup_voffsets(exist, kv, kmers, size: int, max_probe: int,

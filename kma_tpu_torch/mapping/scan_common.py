@@ -110,9 +110,9 @@ def dispatch_tier0(call, codes, lengths, batch: int, flat_cap: int,
                    device: torch.device) -> list:
     """Queue ``call(codes_t, lens_t, 0, flat_cap)`` on every ``batch``-row
     slice of a read set, without syncing.  Every slice is padded to
-    ``batch`` rows, so a read set's batches share one static shape: the
-    dense scanner's ``call`` replays one step graph for all of them
-    (``scan_dense.StepGraphs``, on a CUDA card)."""
+    ``batch`` rows, so a read set's batches share one static shape: on
+    a CUDA card the ``call`` of either scanner (dense or pair-stream)
+    replays one step graph for all of them (``scan_dense.StepGraphs``)."""
     return [call(*_padded(codes[o: o + batch], lengths[o: o + batch],
                           batch, device), 0, flat_cap)
             for o in range(0, codes.shape[0], batch)]
@@ -128,7 +128,9 @@ def wide_chunks(call, codes, lengths, sel, best_cap: int,
     of ``rows`` rows.  The flat buffer holds a chunk's worst case, 2 *
     ``best_cap`` ids a read (2**21 ids, 8 MB, at the wide tier's caps),
     so no tie list is cut short; only its used prefix comes back.  Every
-    chunk is padded to ``rows`` rows: one static shape, one step graph.
+    chunk is padded to ``rows`` rows: one static shape, one step graph
+    of either scanner on a CUDA card.  Each chunk syncs before the next
+    is sent (its ids are cut to their used prefix on the host).
 
     Yields (reads, meta [n, 2] int32, packed ids int32, n_out [n])."""
     flat_cap = rows * 2 * best_cap

@@ -65,7 +65,6 @@ import torch
 
 from ..device import DeviceLike, resolve, resolve_devices
 from ..index.format import KmaIndex
-from ..ops import scan_kernel
 from ..ops.scan_kernel import run_score_rows
 from .device_index import (_cuckoo_build, _cuckoo_tsize, as_i32,
                            batch_kmers, lookup_voffsets, valid_windows)
@@ -814,7 +813,20 @@ def dense_scan_device(codes, lengths, didx: DenseIndex, *, sparams,
                       flat_cap, small_ids)
 
 
-def graph_key(didx: DenseIndex, shape, statics: dict) -> tuple:
+class GraphKey(collections.namedtuple("GraphKey", (
+        "sparams", "B", "flat_cap", "small_ids", "mega", "size",
+        "max_probe", "t_pad", "n_lists", "proxi_frac", "merged", "L",
+        "device"))):
+    """A dense step graph's key (``graph_key``)."""
+
+    __slots__ = ()
+
+    @property
+    def tier(self) -> int:
+        return 0 if self.merged else 1     # tier 0 takes the merged epilogue
+
+
+def graph_key(didx: DenseIndex, shape, statics: dict) -> GraphKey:
     """The key of a batch of ``shape`` (B, L) at ``statics`` (the keyword
     arguments of ``dense_scan_device``): the static arguments of the
     JAX jit of ``dense_scan_device`` (kma_tpu/mapping/scan_dense.py:
@@ -823,10 +835,11 @@ def graph_key(didx: DenseIndex, shape, statics: dict) -> tuple:
     has no counterpart), L, which jit reads from the shape, and the
     device."""
     B, L = shape
-    return (statics["sparams"], int(B), statics["flat_cap"],
-            statics["small_ids"], didx.mega, didx.size, didx.max_probe,
-            didx.t_pad, didx.n_lists, statics["proxi_frac"],
-            statics["merged"], int(L), str(didx.device))
+    return GraphKey(statics["sparams"], int(B), statics["flat_cap"],
+                    statics["small_ids"], didx.mega, didx.size,
+                    didx.max_probe, didx.t_pad, didx.n_lists,
+                    statics["proxi_frac"], statics["merged"], int(L),
+                    str(didx.device))
 
 
 @dataclasses.dataclass
@@ -835,14 +848,15 @@ class _Graph:
     codes: torch.Tensor            # static inputs: codes [B, L] uint8,
     lengths: torch.Tensor          # lengths [B] int32
     out: Tuple[torch.Tensor, ...]  # static outputs: meta, flat
-    launches: int                  # run_score_rows launches it holds
+    launches: Tuple[int, ...]      # launches it holds, by ``kernels``
 
 
 class StepGraphs:
-    """The port's counterpart of the ``jax.jit`` cache of the JAX
-    ``dense_scan_device``: one CUDA graph of the dense step a key of
-    static arguments (``graph_key``).  The first batch of a key captures
-    it (``entry.capture``: WARMUP eager calls, then the capture); every
+    """The port's counterpart of the ``jax.jit`` cache of a scan step
+    (the JAX ``dense_scan_device`` or ``fast_scan_device``): one CUDA
+    graph of the step a key of static arguments (``graph_key``,
+    ``scan_fast.fast_key``).  The first batch of a key captures it
+    (``entry.capture``: WARMUP eager calls, then the capture); every
     batch, that one too, copies its codes and lengths into the graph's
     static inputs, replays the graph, and copies its meta and flat out
     on the card at once, since the next replay of the key overwrites
@@ -850,11 +864,14 @@ class StepGraphs:
     sync, and the daemon dispatches request k+1 before it resolves
     request k).
 
-    An unsharded image on a CUDA card holds one, which the scanners of
-    every penalty set share: the graphs hold the addresses of its
-    ``exist``, ``kv`` and ``bits`` and live no longer than it.  A sharded
-    image has none (one graph spans one device) and runs eager, as do
-    the pair-stream scanner and the ``chain`` op.
+    An image on a CUDA card holds one, which the scanners of every
+    penalty set share: an unsharded dense image (its step reads the
+    image's ``exist``, ``kv`` and ``bits``) and the pair-stream image
+    (``exist``, ``kv`` and ``values``; ``device_index.step_graphs``).
+    ``tensors`` names what the step reads of the image: the graphs hold
+    their addresses and live no longer than it.  A sharded image has
+    none (one graph spans one device) and runs eager, as does the
+    ``chain`` op.
 
     Pool: the graphs share one memory pool (``graph_pool_handle``), so
     they hold one batch's intermediates at the largest key, not one
@@ -867,41 +884,51 @@ class StepGraphs:
     another graph whose intermediates reuse blocks freed in an earlier
     capture cannot clobber an output anyone reads.  The static inputs
     and the copies are allocated outside the pool.  At MAX_GRAPHS graphs
-    the least recently replayed is dropped.
+    the least recently replayed is dropped (``evictions`` counts them).
 
     A capture that fails raises, and the caller's op faults: nothing runs
     eager in its place.  ``captures`` and ``replays`` count by key;
     ``capture_s`` holds each key's last capture time (host clock, the
-    warm-up calls included).  ``capture`` replaces ``entry.capture``
-    (the CPU tests' stand-in)."""
+    warm-up calls included).  ``kernels`` are the hand-written kernels'
+    wrappers the step may launch (the dense step's ``run_score_rows``;
+    none for the pair-stream step): the capture pass runs no launch, so
+    a replay adds its graph's launches to each wrapper's count.
+    ``capture`` replaces ``entry.capture`` (the CPU tests' stand-in)."""
 
-    def __init__(self, capture: Optional[Callable] = None):
+    def __init__(self, capture: Optional[Callable] = None,
+                 tensors: Sequence[str] = ("exist", "kv", "bits"),
+                 kernels: Sequence[Callable] = (run_score_rows,)):
         self._capture = capture
+        self.tensors = tuple(tensors)
+        self.kernels = tuple(kernels)
         self.graphs: "collections.OrderedDict[tuple, _Graph]" = \
             collections.OrderedDict()
         self.captures: collections.Counter = collections.Counter()
         self.replays: collections.Counter = collections.Counter()
         self.capture_s: Dict[tuple, float] = {}
+        self.evictions = 0
         self.pool = None
 
     def run(self, key: tuple, step: Callable, codes: torch.Tensor,
-            lengths: torch.Tensor, didx: DenseIndex):
+            lengths: torch.Tensor, image):
         """(meta, flat) of ``step`` (a pure function of codes, lengths
-        and the image's exist, kv and bits: ``DenseScanner.step``) on
-        this batch, replayed from the key's graph."""
+        and the image's ``tensors``: ``DenseScanner.step``,
+        ``FastScanner.step``) on this batch, replayed from the key's
+        graph."""
         g = self.graphs.get(key)
         if g is None:
-            g = self._capture_key(key, step, codes, lengths, didx)
+            g = self._capture_key(key, step, codes, lengths, image)
         self.graphs.move_to_end(key)
         g.codes.copy_(codes)
         g.lengths.copy_(lengths)
         g.graph.replay()
         self.replays[key] += 1
         # a replay runs the kernel launches its graph holds
-        scan_kernel.run_score_rows.launches += g.launches
+        for k, n in zip(self.kernels, g.launches):
+            k.launches += n
         return tuple(t.clone() for t in g.out)
 
-    def _capture_key(self, key, step, codes, lengths, didx) -> _Graph:
+    def _capture_key(self, key, step, codes, lengths, image) -> _Graph:
         capture = self._capture
         if capture is None:
             from ..entry import capture  # entry.py imports this module
@@ -909,21 +936,24 @@ class StepGraphs:
             self.pool = torch.cuda.graph_pool_handle()
         while len(self.graphs) >= MAX_GRAPHS:
             self.graphs.popitem(last=False)
+            self.evictions += 1
         held = []
 
         def counted(*args):
-            n0 = scan_kernel.run_score_rows.launches
+            n0 = [k.launches for k in self.kernels]
             out = step(*args)
-            held.append(scan_kernel.run_score_rows.launches - n0)
+            held.append(tuple(k.launches - n
+                              for k, n in zip(self.kernels, n0)))
             return out
 
-        args = (codes.clone(), lengths.clone(), didx.exist, didx.kv,
-                didx.bits)
+        args = (codes.clone(), lengths.clone(),
+                *(getattr(image, t) for t in self.tensors))
         t0 = time.perf_counter()
         graph, out = capture(counted, args, pool=self.pool)
         self.capture_s[key] = time.perf_counter() - t0
         # the capture pass recorded its launches; the replays run them
-        scan_kernel.run_score_rows.launches -= held[-1]
+        for k, n in zip(self.kernels, held[-1]):
+            k.launches -= n
         g = _Graph(graph, args[0], args[1], tuple(out), held[-1])
         self.graphs[key] = g
         self.captures[key] += 1

@@ -487,3 +487,166 @@ def test_failed_capture_faults_the_dense_op(cuda, tmp_path, monkeypatch):
     th.join(timeout=30)
     assert srv.faults == {"dense": 1}
     assert not srv.graphs.graphs and not srv.graphs.replays
+
+
+# -- the pair-stream step's graphs (scan_fast.FastScanner on a card image) ---
+
+def _fast_scanner(dev, seed=21, **kw):
+    """A FastScanner (batch 256) on a card image of the 120 panel
+    templates above, which replays graphs; reads come from ``seed``."""
+    from kma_tpu_torch.config import Penalties
+    from kma_tpu_torch.mapping import scan_dense as tsd
+    from kma_tpu_torch.mapping import scan_fast as tsf
+    from kma_tpu_torch.parallel.multichip import SEED, _panel, \
+        synthetic_index
+    seqs = _panel(np.random.default_rng(SEED), 120)
+    sc = tsf.FastScanner(synthetic_index(seqs), Penalties(), batch=256,
+                         device=dev, **kw)
+    assert isinstance(sc.didx.graphs, tsd.StepGraphs)
+    assert sc.didx.graphs.kernels == ()
+    return sc, seqs, np.random.default_rng(seed)
+
+
+def _fast_batch(sc, rng, seqs, tier, L):
+    """A batch of the daemon's shape at ``tier`` (the scanner's batch, or
+    a wide chunk): (codes, lengths on the card, flat_cap)."""
+    from kma_tpu_torch.mapping.scan_common import WIDE_ROWS
+    from kma_tpu_torch.parallel.multichip import _reads
+    rows = sc.batch if tier == 0 else WIDE_ROWS
+    c, n = _reads(rng, seqs, rows, L)
+    cap = 8 * rows if tier == 0 else rows * 2 * sc.TIERS[1][2]
+    dev = sc.didx.device
+    return torch.from_numpy(c).to(dev), torch.from_numpy(n).to(dev), cap
+
+
+def _fast_replay_is_eager_and_plain(sc, c, n, tier, cap):
+    """One batch through the scanner (a replay) against the eager step on
+    the card and the plain step on CPU copies: bit for bit."""
+    from kma_tpu_torch.mapping import scan_fast as tsf
+    d, L = sc.didx, c.shape[1]
+    got = sc._call(c, n, tier, cap)
+    eager = tsf.fast_scan_device(c, n, d, **sc._statics(tier, cap))
+    plain = sc.step(L, tier, cap)(c.cpu(), n.cpu(), d.exist.cpu(),
+                                  d.kv.cpu(), d.values.cpu())
+    torch.cuda.synchronize()
+    for x, y, z in zip(got, eager, plain):
+        assert x.dtype == z.dtype
+        assert torch.equal(x, y) and torch.equal(x.cpu(), z)
+    return got
+
+
+def test_pair_stream_graphs_replay_out_of_capture_order(cuda):
+    """Tier 0 and the wide tier at L 128 and 192, captured in that order
+    into one shared pool, then replayed in other orders on new reads:
+    every replay equals the eager step and the plain version bit for
+    bit, and no key is captured twice."""
+    sc, seqs, rng = _fast_scanner(cuda)
+    g = sc.didx.graphs
+    keys = [(0, 128), (1, 128), (0, 192), (1, 192)]
+    for tier, L in keys:
+        c, n, cap = _fast_batch(sc, rng, seqs, tier, L)
+        sc._call(c, n, tier, cap)
+    assert len(g.graphs) == 4 and g.pool is not None
+    assert sorted((k.tier, k.L) for k in g.graphs) == sorted(keys)
+    mapped = 0
+    for tier, L in keys[::-1] + [keys[0], keys[3], keys[1], keys[2]]:
+        c, n, cap = _fast_batch(sc, rng, seqs, tier, L)
+        meta, _ = _fast_replay_is_eager_and_plain(sc, c, n, tier, cap)
+        mapped += int(((meta[:, 1] & 3) != 0).sum())
+    assert mapped > 0
+    assert sum(g.captures.values()) == 4
+    assert sum(g.replays.values()) == 12
+    assert g.pool_bytes() > 0
+
+
+@pytest.mark.parametrize("kw", [dict(proxi_frac=0.9),
+                                dict(exhaustive=True)])
+def test_pair_stream_proxi_and_exhaustive_steps_replay(cuda, kw):
+    """The proxi threshold (a host scalar the capture bakes in; the key
+    holds proxi_frac) and the exhaustive front half: captured, their
+    replays equal the eager step and the plain version."""
+    sc, seqs, rng = _fast_scanner(cuda, seed=22, **kw)
+    for tier in (0, 1):
+        for _ in range(2):
+            c, n, cap = _fast_batch(sc, rng, seqs, tier, 128)
+            _fast_replay_is_eager_and_plain(sc, c, n, tier, cap)
+    g = sc.didx.graphs
+    assert sum(g.captures.values()) == 2
+    assert all(k.proxi_frac == kw.get("proxi_frac") for k in g.graphs)
+
+
+def test_pair_stream_two_requests_dispatched_before_either_resolves(cuda):
+    """Two 600-read requests (three tier-0 batches of one key each)
+    dispatched before the first resolves, as the daemon pipelines them:
+    each equals the plain scanner on the CPU."""
+    from kma_tpu_torch.config import Penalties
+    from kma_tpu_torch.mapping import scan_fast as tsf
+    from kma_tpu_torch.parallel.multichip import _reads, synthetic_index
+    sc, seqs, rng = _fast_scanner(cuda, seed=23)
+    reqs = [_reads(rng, seqs, 600, 128) for _ in range(2)]
+    handles = [sc.scan_dispatch(c, n) for c, n in reqs]
+    got = [sc.scan_resolve(h) for h in handles]
+    plain = tsf.FastScanner(synthetic_index(seqs), Penalties(), batch=256,
+                            device="cpu")
+    assert plain.didx.graphs is None
+    for (c, n), a in zip(reqs, got):
+        b = plain.scan_reads(c, n).lists()
+        for x, y in zip(a[:2] + a[3:], b[:2] + b[3:]):
+            assert np.array_equal(x, y)
+        for x, y in zip(a[2], b[2]):
+            assert (x is None) == (y is None)
+            assert x is None or np.array_equal(x, y)
+        assert (a[1] != 0).sum() > 300
+    g = sc.didx.graphs
+    assert max(g.replays[k] for k in g.graphs if k.tier == 0) >= 6
+
+
+def test_pair_stream_failed_capture_faults_the_dense_op(cuda, tmp_path,
+                                                        monkeypatch):
+    """On a pair-stream daemon (a dense budget of 0), a step that syncs
+    the host cannot be captured: the dense request answers ``ok: 0``,
+    counts a fault, and no graph is kept (nothing runs eager in its
+    place)."""
+    import subprocess
+    import sys
+    import threading
+    from pathlib import Path
+
+    from kma_tpu_torch import devserve
+    from kma_tpu_torch.config import Penalties
+    from kma_tpu_torch.mapping import scan_fast as tsf
+    from kma_tpu_torch.parallel.multichip import SEED, _panel, _reads
+    seqs = _panel(np.random.default_rng(SEED), 60)
+    rng = np.random.default_rng(24)
+    fasta, prefix = tmp_path / "db.fsa", str(tmp_path / "db")
+    fasta.write_text("".join(">t%d\n%s\n" % (i, "".join("ACGT"[x] for x in s))
+                             for i, s in enumerate(seqs)))
+    subprocess.run([sys.executable, "-m", "kma_tpu", "index", "-i",
+                    str(fasta), "-o", prefix], check=True,
+                   cwd=Path(__file__).resolve().parent.parent,
+                   capture_output=True)
+    monkeypatch.setenv("KMA_TPU_DENSE_BUDGET_MB", "0")
+    srv = devserve.TorchDevServer(prefix, batch=64, device=cuda)
+    monkeypatch.delenv("KMA_TPU_DENSE_BUDGET_MB")
+    assert srv.scanner_kind == "pair_stream" and srv.graphs is not None
+    real = tsf.fast_scan_device
+
+    def syncs(codes, *a, **k):
+        int(codes.sum())        # a host sync: refused while capturing
+        return real(codes, *a, **k)
+
+    monkeypatch.setattr(tsf, "fast_scan_device", syncs)
+    sock = str(tmp_path / "d.sock")
+    up = threading.Event()
+    th = threading.Thread(target=srv.serve, daemon=True, kwargs={
+        "sock_path": sock, "ready_cb": up.set})
+    th.start()
+    assert up.wait(30)
+    cli = devserve.DevClient.connect(prefix, sock_path=sock)
+    c, n = _reads(rng, seqs, 40, 128)
+    with pytest.raises(RuntimeError, match="devserve error"):
+        cli.dense_scan(c, n, Penalties(), False, None)
+    cli.stop()
+    th.join(timeout=30)
+    assert srv.faults == {"dense": 1}
+    assert not srv.graphs.graphs and not srv.graphs.replays
