@@ -34,7 +34,9 @@ non-zero):
     100 bp ``-1t1`` run once more through ``python -m kma_tpu_torch
     run``, which starts a daemon of its own, and twice through ``python
     -m kma_tpu_torch`` with no ``-device`` (``auto``, decided as the JAX
-    package decides it): under ``KMA_TPU_DEVICE_AUTO_MB=1`` it must go
+    package decides it; from the launcher run on, phases (e) and (f)'s
+    index builds run in the background): under
+    ``KMA_TPU_DEVICE_AUTO_MB=1`` it must go
     to the card through a daemon of its own (dense requests, run-scoring
     launches), under the default (the card's threshold, ``envelope.py``)
     it must stay on the host with no
@@ -42,7 +44,9 @@ non-zero):
     mode, whose window probes ride the daemon's
     ``chain`` op: the native CLI on the 20,000 reads without ``-1t1``,
     with ``-ipe`` on 10,000 simulated pairs and with ``-hmm``, and the
-    Python CLI on the pairs, each byte-identical to ``-device off``;
+    Python CLI on the pairs, each byte-identical to ``-device off``,
+    every chain request served from a replay of the daemon's chain
+    graphs (``warm()`` captured them);
     the same three native runs once more through ``python -m
     kma_tpu_torch ... -device on`` with no ``KMA_DEV_CHAIN`` and none of
     the card's figures set (``kma_tpu_torch/envelope.py``): the
@@ -56,9 +60,10 @@ non-zero):
     ``nw_codes`` requests (the codes-fed NW kernel) and ``pileup`` on
     aligned rows cut from a panel template, against the plain versions;
 (d) prints reads/s of the device and host runs, the overflow share, the
-    daemon's dense-op and chain-op ms per request and the device-to-host
-    copy of the widest chain reply, beside the card's name and power
-    limit;
+    daemon's dense-op and chain-op ms per request, one chain request of
+    2,048 and of 16,384 reads replayed against eager, and the
+    device-to-host copy of the widest chain reply, beside the card's
+    name and power limit;
 (e) a cgMLST-scale DB: a synthetic scheme shaped like Salmonella
     enterica cgMLST (EnteroBase's 3,002 loci of 500-1,500 bp, 40 alleles
     a locus, each 1-7 SNPs from its locus ancestor; V ~807,000 lists x
@@ -71,16 +76,21 @@ non-zero):
     -device on`` through both CLIs (step graphs replayed; peak device
     memory, allocated and reserved with the graphs' pool, must stay
     under the footprint), the native default mode (``KMA_DEV_CHAIN=force``)
-    and the Python CLI's ``KMA_TPU_NO_FUSED=1`` default mode on 5,000 of
-    them (``chain`` requests served), each byte-identical to ``-device
-    off``; one ``run_score_rows`` call on the whole table (t_pad
+    and the Python CLI's ``KMA_TPU_NO_FUSED=1`` default mode on the
+    first 5,000 of them (``chain`` requests served from chain graph
+    replays), each byte-identical to ``-device off``; one chain request
+    of 16,384 reads is timed replayed and eager; one
+    ``run_score_rows`` call on the whole table (t_pad
     120,192) is held against its plain version and timed (CUDA events,
     torch.profiler's device time) beside its bound; two dense
     requests are profiled (host-clock stages, torch.profiler busy share
-    and top kernels).  Then the same DB under ``KMA_TPU_DENSE_BUDGET_MB=0``
+    and top kernels); after the daemon's teardown the card's reserved
+    memory must be within 512 MB of what it was before the daemon was
+    built.  Then the same DB under ``KMA_TPU_DENSE_BUDGET_MB=0``
     must be served by the pair-stream scanner, whose ``warm()`` captures
     its step graphs of tier 0 and the wide tier: both CLIs' ``-1t1``
-    again, byte-identical to ``-device off`` (the dense op's medians
+    again on the first 5,000 reads, byte-identical to ``-device off``
+    (the dense op's medians
     printed beside the dense scanner's; both tiers' graphs must be
     replayed; peak device memory and the graphs' pool printed beside
     the card's), and the native default mode,
@@ -100,21 +110,25 @@ non-zero):
     (``KMA_TPU_DENSE_BUDGET_MB``, the largest shard's footprint, under
     the one-card footprint) by the dense scanner on an image whose
     template columns are sharded over every card (``["cuda:0",
-    "cuda:0"]`` on a one-card machine), which replays no step graph;
+    "cuda:0"]`` on a one-card machine, the code a four-card box runs),
+    which replays its step's segments' graphs (``ShardedStep``: one graph
+    a segment on its card, copies between them);
     20,000 100 bp reads through both CLIs' ``-1t1 -device on`` and the
     native default mode
-    (``KMA_DEV_CHAIN=force``), byte-identical to ``-device off``, with
-    run-scoring calls on every shard; one shard's kernel call equals its
-    plain version bit for bit, one sharded ``dense_scan_device`` batch
-    (tier 0 and tier 1) equals the unsharded image's;
+    (``KMA_DEV_CHAIN=force``), byte-identical to ``-device off``, every
+    dense batch and chain request a replay, run-scoring calls on every
+    shard (counted from the replays) summing to the launches, peak
+    memory under the shards' footprints; one shard's kernel call equals
+    its plain version bit for bit; one batch of the daemon's shape (B
+    2,048, L 128) replayed at tier 0 and tier 1 equals its eager step,
+    its plain version and the unsharded image's replay and eager step;
     ``dryrun_multichip`` runs over the cards (four entries of
     ``cuda:0`` on a one-card machine).  It prints V, t_pad, the
     one-card footprint, the budget and each shard's footprint and bits,
-    reads/s on and off, the dense op's ms a request, one shard's kernel
-    ms (CUDA events) beside the unsharded call's, the cross-device
-    copies' ms of one batch, and where one batch's device time goes,
-    sharded and unsharded (torch.profiler: front half, gathers and
-    kernel calls, epilogue, top events) with one gather's ms;
+    the graphs, reads/s on and off, the dense op's ms a request, one
+    shard's kernel ms (CUDA events) beside the unsharded call's, that
+    batch's eager and replay ms a call and device events a call, sharded
+    beside unsharded, and the cross-device copies' ms of one batch;
 (g) run between (c) and (e), on (c)'s panel image:
     ``kma_tpu_torch.entry``, the counterpart of ``__graft_entry__.py``:
     ``entry()``'s production dense step on the card equals its plain
@@ -131,7 +145,14 @@ non-zero):
 Every daemon the smoke serves, and every one the launcher starts, must
 stop with ``faults 0``: an op that raised other than by design (a
 refusal) fails the smoke, even where the client's host finished the run
-at parity.
+at parity.  A capture that fails faults its op, so it fails the smoke.
+
+Cut to fit half the 1,200 s limit (by depth only, every path still
+driven): phase (e)'s repeated runs (the native default mode, the
+pair-stream ``-1t1`` runs of both CLIs and the pair-stream native
+default mode) take the first 5,000 of the 50,000 cgMLST reads; the
+index builds of phases (e) and (f) run in the background from phase
+(c)'s launcher run on.  The summary prints each phase's seconds.
 
 The smoke imports neither jax nor anything of ``kma_tpu``: the JAX
 package's front end (index builds, native library builds, CLI runs) runs
@@ -164,7 +185,7 @@ SEED = 2024
 N_LOCI = 3002           # EnteroBase's Salmonella enterica cgMLST scheme
 N_ALLELES = 40
 N_CG_READS = 50000
-N_CG_PY_READS = 5000     # the Python CLI's unfused default mode, cgMLST
+N_CG_SUB_READS = 5000    # phase (e)'s default modes and repeated runs
 CG_READ_LEN = 150
 N_BIG_TEMPLATES = 18000  # phase (f): sharded under an explicit budget
 DEVICE = "cuda"
@@ -651,16 +672,44 @@ print(json.dumps({m.__name__: m.get_lib() is not None
 """
 
 
+def index_start(py_cli, env, fasta, prefix, log):
+    """Start ``kma index -i fasta -o prefix`` through the system's front
+    end, as a program; its one "# Added" line a template goes to
+    ``log``.  Returns the job for ``index_wait``."""
+    f = open(log, "w")
+    proc = subprocess.Popen(py_cli + ["index", "-i", fasta, "-o", prefix],
+                            env=env, stdout=f, stderr=f)
+    atexit.register(stop_proc, proc)
+    return proc, f, fasta, log, time.time()
+
+
+def stop_proc(proc):
+    """Kill ``proc`` if it still runs (a failed smoke leaves none)."""
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+
+
+def index_wait(job):
+    """Wait for an ``index_start`` job; fails unless it exited 0.
+    Returns its seconds."""
+    proc, f, fasta, log, t0 = job
+    try:
+        rc = proc.wait(timeout=900)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        rc = "killed after 900 s"
+    f.close()
+    if rc != 0:
+        with open(log) as g:
+            fail("kma index of %s exited %s:\n%s" % (fasta, rc,
+                                                    g.read()[-3000:]))
+    return time.time() - t0
+
+
 def index_db(py_cli, env, fasta, prefix, log):
-    """``kma index -i fasta -o prefix`` through the system's front end,
-    as a program; its one "# Added" line a template goes to ``log``."""
-    with open(log, "w") as f:
-        r = subprocess.run(py_cli + ["index", "-i", fasta, "-o", prefix],
-                           env=env, stdout=f, stderr=f, timeout=900)
-    if r.returncode != 0:
-        with open(log) as f:
-            fail("kma index of %s exited %d:\n%s"
-                 % (fasta, r.returncode, f.read()[-3000:]))
+    index_wait(index_start(py_cli, env, fasta, prefix, log))
 
 
 def same_outputs(a, b, what):
@@ -813,6 +862,72 @@ def with_budget_mb(mb, build):
         del os.environ["KMA_TPU_DENSE_BUDGET_MB"]
 
 
+def reset_counts(srv):
+    """A daemon's request, dense-op, graph-replay and scan counts set to
+    zero (a loop variable left bound to a scanner would keep its image
+    alive past the daemon's teardown)."""
+    srv.requests.clear()
+    srv.dense_ms.clear()
+    srv.chain_ms.clear()
+    srv.reads_scanned = srv.reads_overflow = 0
+    for g in (srv.graphs, srv.chain_graphs):
+        if g is not None:
+            g.replays.clear()
+    for name in ("tier0_batches", "tier0_spills", "wide_reads"):
+        for sc in srv.scanners.values():
+            if hasattr(sc, name):
+                setattr(sc, name, 0)
+
+
+def chain_keys(graphs):
+    """Each chain graph of a daemon: its rows, L, capture seconds and
+    replays."""
+    return "; ".join(
+        "rows %d L %d (captured in %.3f s, %d replays)"
+        % (k[5], k[6], graphs.capture_s[k], graphs.replays[k])
+        for k in graphs.graphs) or "none"
+
+
+def chain_eager_replay(torch, np, srv, fq, read_len, rows, gpu, what):
+    """One chain request of ``rows`` reads of ``fq`` (padded as the
+    clients pad them) through the daemon's op code: replayed from its
+    chain graph (a new key is captured first) and eager (the image's
+    chain graphs set aside), equal to each other; CUDA-event ms a
+    request (host padding, upload, lookup and the host copy of both
+    strands' rows; median of ENTRY_REPS)."""
+    from kma_tpu_torch.mapping.chain_device import chain_lookup_dense
+    L = 128
+    while L < read_len:
+        L = (L * 3 // 2 + 63) // 64 * 64
+    with open(fq, "rb") as f:
+        lines = f.read().split(b"\n")
+    lut = np.full(256, 4, np.uint8)
+    lut[list(ACGT)] = [0, 1, 2, 3]
+    codes = np.full((rows, L), 4, np.uint8)
+    for i in range(rows):
+        s = np.frombuffer(lines[4 * (i % (len(lines) // 4)) + 1], np.uint8)
+        codes[i, :len(s)] = lut[s]
+    lens = np.full(rows, read_len, np.int32)
+    d, g = srv.didx, srv.chain_graphs
+    run = lambda: chain_lookup_dense(d, srv.idx, codes, lens)  # noqa: E731
+    rep = run()
+    rep_ms = call_ms(torch, run)
+    d.chain_graphs = None
+    try:
+        eager = run()
+        eager_ms = call_ms(torch, run)
+    finally:
+        d.chain_graphs = g
+    if not all(np.array_equal(a, b) for a, b in zip(rep, eager)):
+        fail("%s chain request: the replay differs from the eager lookup"
+             % what)
+    say("%s chain request of %d reads (L %d): replayed %.4f ms, eager "
+        "%.4f ms a request (CUDA events, median of %d; padding, upload and "
+        "the host copy included), equal  [%s]"
+        % (what, rows, L, rep_ms, eager_ms, ENTRY_REPS, gpu))
+    return dict(rows=rows, L=L, replay_ms=rep_ms, eager_ms=eager_ms)
+
+
 def graph_keys(graphs):
     """Each step graph of a daemon (dense or pair-stream): its tier, B and
     L, capture seconds and replays."""
@@ -893,36 +1008,42 @@ def time_cg_kernel(torch, np, srv, codes, lengths, gpu):
                 bound_ms=bms, bound_by=by, err=err, G=G, R=R, T=d.t_pad)
 
 
+def prepare_e(np, work, env, py_cli, n_loci=N_LOCI, n_reads=N_CG_READS):
+    """Phase (e)'s data: the scheme's FASTA, its index build started in
+    the background, the isolate's reads and their subsets."""
+    o = lambda n: os.path.join(work, n)  # noqa: E731
+    t0 = time.time()
+    loci = make_scheme(o("cg.fsa"), np, n_loci)
+    t_fa = time.time() - t0
+    job = index_start(py_cli, env, o("cg.fsa"), o("cg"), o("cg_index.log"))
+    make_isolate_reads(o("cg.fq"), loci, np, n_reads)
+    with open(o("cg.fq"), "rb") as f, open(o("cg_sub.fq"), "wb") as g:
+        g.writelines(f.readline() for _ in range(4 * N_CG_SUB_READS))
+    return dict(job=job, t_fa=t_fa, n_loci=n_loci, n_reads=n_reads,
+                n_bp=sum(a.size for a in loci))
+
+
 def phase_e_big_db(torch, np, work, env, env_off, py_cli, native_ran, gpu,
-                   device, n_loci=N_LOCI, n_reads=N_CG_READS):
-    """Index the scheme; serve it with the dense scanner on one card (no
-    budget override) and drive both CLIs' -1t1, the native default mode
-    and the Python CLI's unfused default mode; time one kernel call and
-    profile two dense requests; then serve it with the pair-stream
-    scanner under an explicit budget of 0 and drive the same -1t1 runs.
-    Returns the phase's numbers."""
+                   device, prep):
+    """Wait for the scheme's index; serve it with the dense scanner on one
+    card (no budget override) and drive both CLIs' -1t1, the native
+    default mode and the Python CLI's unfused default mode; time one
+    kernel call and profile two dense requests; then serve it with the
+    pair-stream scanner under an explicit budget of 0 and drive the
+    -1t1 runs again on fewer reads.  Returns the phase's numbers."""
     from kma_tpu_torch.devserve import (TorchDevServer, kernel_launches,
                                         reset_kernel_launches, socket_path)
 
     o = lambda n: os.path.join(work, n)  # noqa: E731
     dev = torch.device(device, 0) if ":" not in device \
         else torch.device(device)
-    t0 = time.time()
-    loci = make_scheme(o("cg.fsa"), np, n_loci)
-    t_fa = time.time() - t0
-    t0 = time.time()
-    index_db(py_cli, env, o("cg.fsa"), o("cg"), o("cg_index.log"))
-    t_index = time.time() - t0
-    make_isolate_reads(o("cg.fq"), loci, np, n_reads)
-    with open(o("cg.fq"), "rb") as f, open(o("cg_py.fq"), "wb") as g:
-        for _ in range(4 * N_CG_PY_READS):
-            g.write(f.readline())
-    n_tpl = n_loci * N_ALLELES
+    t_index = index_wait(prep["job"])
+    n_loci, n_reads = prep["n_loci"], prep["n_reads"]
     say("cgMLST-shaped scheme: %d loci x %d alleles = %d templates, %d "
-        "bp; FASTA in %.1f s, indexed in %.1f s; %d reads of %d bp  [%s]"
-        % (n_loci, N_ALLELES, n_tpl, sum(a.size for a in loci), t_fa,
-           t_index, n_reads, CG_READ_LEN, gpu))
-    del loci
+        "bp; FASTA in %.1f s, indexed in %.1f s (in the background since "
+        "phase (c)); %d reads of %d bp  [%s]"
+        % (n_loci, N_ALLELES, n_loci * N_ALLELES, prep["n_bp"],
+           prep["t_fa"], t_index, n_reads, CG_READ_LEN, gpu))
     kma = [os.path.join(HERE, "bin", "kma")]
     clis = [("python CLI", py_cli)] + ([("native CLI", kma)]
                                        if native_ran else [])
@@ -932,6 +1053,7 @@ def phase_e_big_db(torch, np, work, env, env_off, py_cli, native_ran, gpu,
     # the dense scanner, no budget override: the card's free memory
     gc.collect()
     torch.cuda.empty_cache()
+    reserved0 = torch.cuda.memory_reserved(dev)
     srv = TorchDevServer(o("cg"), batch=2048, device=device)
     d = srv.didx
     if srv.scanner_kind != "dense" or d.sharded:
@@ -951,25 +1073,21 @@ def phase_e_big_db(torch, np, work, env, env_off, py_cli, native_ran, gpu,
            srv.build_s, gpu))
     t0 = time.time()
     srv.warm([192], verbose=False)
-    graphs = srv.graphs
-    if graphs is None or not graphs.graphs:
-        fail("the cgMLST dense daemon holds no step graph after warm()")
+    graphs, chain_g = srv.graphs, srv.chain_graphs
+    if graphs is None or not graphs.graphs or not chain_g.graphs:
+        fail("the cgMLST dense daemon holds no step or chain graph after "
+             "warm()")
     say("cgMLST dense daemon warmed (L 192, both tiers, chain) in %.1f s; "
-        "step graphs %s; pool %.1f MB (the footprint's graph term %.1f MB "
-        "beside 2 x a batch's workspace %.1f MB)  [%s]"
-        % (time.time() - t0, graph_keys(graphs),
+        "step graphs %s; chain graphs %s; pool %.1f MB (the footprint's "
+        "graph term %.1f MB beside 2 x a batch's workspace %.1f MB)  [%s]"
+        % (time.time() - t0, graph_keys(graphs), chain_keys(chain_g),
            graphs.pool_bytes() / 2 ** 20, fp.graphs / 2 ** 20,
            fp.workspace / 2 ** 20, gpu))
     serve = serve_thread(srv, socket_path(o("cg")), "cgMLST dense daemon")
 
     # the cgMLST -1t1 path: counts from zero
     reset_kernel_launches()
-    srv.requests.clear()
-    srv.dense_ms.clear()
-    graphs.replays.clear()
-    srv.reads_scanned = srv.reads_overflow = 0
-    for sc in srv.scanners.values():
-        sc.tier0_batches = sc.wide_reads = 0
+    reset_counts(srv)
     torch.cuda.reset_peak_memory_stats(dev)
     walls, dense_by_cli = {}, {}
     for name, cmd in clis:
@@ -1015,38 +1133,53 @@ def phase_e_big_db(torch, np, work, env, env_off, py_cli, native_ran, gpu,
              for k in ("tier0_batches", "wide_reads")}
 
     # the chain op at cgMLST scale: the native default mode and the
-    # Python CLI's unfused default mode (on fewer reads)
+    # Python CLI's unfused default mode, each on fewer reads
     chain_runs = [("python CLI default mode (KMA_TPU_NO_FUSED=1, %d reads)"
-                   % N_CG_PY_READS, py_cli, ["-i", o("cg_py.fq")],
+                   % N_CG_SUB_READS, py_cli, ["-i", o("cg_sub.fq")],
                    dict(env_off, KMA_TPU_NO_FUSED="1"), "cg_pydef")]
     if native_ran:
-        chain_runs.insert(0, ("native CLI default mode", kma,
-                              ["-i", o("cg.fq")],
+        chain_runs.insert(0, ("native CLI default mode (%d reads)"
+                              % N_CG_SUB_READS, kma, ["-i", o("cg_sub.fq")],
                               dict(env_off, KMA_DEV_CHAIN="force"),
                               "cg_def"))
     chain_walls = {}
+    chain_g.replays.clear()
     for name, cmd, a, env_c, tag in chain_runs:
-        c0 = srv.requests["chain"]
+        c0, r0 = srv.requests["chain"], sum(chain_g.replays.values())
         on, off, _, _, _, n_res = cli_parity(
             srv, cmd, a + ["-t_db", o("cg")], env_c, env_c, o, tag,
             "%s (cgMLST)" % name)
         n_chain = srv.requests["chain"] - c0
-        if n_chain <= 0:
-            fail("%s (cgMLST) sent no chain request" % name)
+        n_rep = sum(chain_g.replays.values()) - r0
+        if n_chain <= 0 or n_rep < n_chain:
+            fail("%s (cgMLST): %d chain requests, %d chain graph replays"
+                 % (name, n_chain, n_rep))
         say("%s (cgMLST): -device on == -device off, %d chain requests "
-            "served, %d templates reported" % (name, n_chain, n_res))
+            "served from %d chain graph replays, %d templates reported"
+            % (name, n_chain, n_rep, n_res))
         chain_walls[name] = (on, off)
     chain_ms = sorted(ms for _, _, ms in srv.chain_ms)
+    say("cgMLST chain graphs after the runs: %s  [%s]"
+        % (chain_keys(chain_g), gpu))
+    chain_cmp = chain_eager_replay(torch, np, srv, o("cg.fq"), CG_READ_LEN,
+                                   16384, gpu, "cgMLST")
 
     codes_cg, lens_cg = cg_codes(np, o("cg.fq"), 8192)
     kern = time_cg_kernel(torch, np, srv, codes_cg[:2048], lens_cg[:2048],
                           gpu)
     profile_dense_op(torch, srv, codes_cg, lens_cg, gpu)
     stop_daemon(o("cg"), serve, "cgMLST dense daemon", srv)
-    del srv, d, scs, graphs
+    del srv, d, scs, graphs, chain_g, serve
     gc.collect()
     torch.cuda.empty_cache()
     base_reserved = torch.cuda.memory_reserved(dev)
+    say("cgMLST dense daemon torn down: %.1f MB reserved, %.1f MB before "
+        "it was built (torch.cuda.memory_reserved)  [%s]"
+        % (base_reserved / 2 ** 20, reserved0 / 2 ** 20, gpu))
+    if base_reserved > reserved0 + (512 << 20):
+        fail("the cgMLST dense daemon left %.1f MB reserved after its "
+             "teardown (%.1f MB before it was built)"
+             % (base_reserved / 2 ** 20, reserved0 / 2 ** 20))
 
     # the pair-stream scanner, forced by an explicit budget of 0
     t0 = time.time()
@@ -1076,20 +1209,21 @@ def phase_e_big_db(torch, np, work, env, env_off, py_cli, native_ran, gpu,
         % (time.time() - t0, graph_keys(pg), pg.pool_bytes() / 2 ** 20,
            gpu))
     serve = serve_thread(ps, socket_path(o("cg")), "pair-stream daemon")
-    # the pair-stream -1t1 path: counts from zero
-    ps.requests.clear()
-    ps.dense_ms.clear()
-    pg.replays.clear()
-    for sc in ps.scanners.values():
-        sc.tier0_batches = sc.tier0_spills = sc.wide_reads = 0
+    # the pair-stream -1t1 path, on the repeated runs' reads: counts
+    # from zero
+    reset_counts(ps)
     torch.cuda.reset_peak_memory_stats(dev)
     ps_by_cli = {}
+    sub = ["-i", o("cg_sub.fq"), "-t_db", o("cg"), "-1t1"]
+    run_cli(py_cli + sub + ["-o", o("cg_sub_host"), "-device", "off"],
+            env_off, "python CLI -1t1 (cgMLST, %d reads) -device off"
+            % N_CG_SUB_READS)
     for name, cmd in clis:
         tag = "ps_" + name.split()[0]
         on, _, ms, _, _, _ = cli_parity(
-            ps, cmd, args, env_off, env_off, o, tag,
-            "%s -1t1 (cgMLST, pair-stream)" % name,
-            host=o("cg_%s_host" % name.split()[0]))
+            ps, cmd, sub, env_off, env_off, o, tag,
+            "%s -1t1 (cgMLST, pair-stream, %d reads)"
+            % (name, N_CG_SUB_READS), host=o("cg_sub_host"))
         if not ms:
             fail("%s -1t1 (cgMLST) sent no request to the pair-stream "
                  "scanner" % name)
@@ -1126,8 +1260,8 @@ def phase_e_big_db(torch, np, work, env, env_off, py_cli, native_ran, gpu,
         # the dense part's -device off run (the expected "devserve lost"
         # line keeps this run out of check_stderr)
         c0 = ps.requests["chain"]
-        on, err = run_cli(kma + ["-i", o("cg.fq"), "-t_db", o("cg"), "-o",
-                                 o("ps_def_dev"), "-device", "on"],
+        on, err = run_cli(kma + ["-i", o("cg_sub.fq"), "-t_db", o("cg"),
+                                 "-o", o("ps_def_dev"), "-device", "on"],
                           dict(env_off, KMA_DEV_CHAIN="force"),
                           "native CLI default mode (cgMLST, pair-stream)")
         if "# device: devserve lost; host scan takes over" not in err \
@@ -1149,6 +1283,7 @@ def phase_e_big_db(torch, np, work, env, env_off, py_cli, native_ran, gpu,
                         gpu)
     stop_daemon(o("cg"), serve, "pair-stream daemon", ps)
     return dict(t_index=t_index, walls=walls, chain_walls=chain_walls,
+                chain_cmp=chain_cmp, reserved0=reserved0,
                 scanned=scanned, overflow=overflow, stats=stats,
                 dense_by_cli=dense_by_cli, ps_by_cli=ps_by_cli,
                 ps_stats=ps_stats, ps_chain_wall=ps_chain_wall,
@@ -1306,9 +1441,7 @@ def shard_kernel_check(torch, np, kb, sk, tsd, ScanParams, sc, one, codes,
                        gpu):
     """One batch (B 2048, L 128) of the phase's reads: the last shard's
     kernel call against its plain version, bit for bit, and its CUDA-event
-    time beside the unsharded image's call on the whole table; then the
-    batch through dense_scan_device, merged (tier 0) and not (tier 1), on
-    the sharded image against the unsharded one."""
+    time beside the unsharded image's call on the whole table."""
     from functools import partial
     d = sc.didx
     B, L = min(2048, len(codes)), 128
@@ -1362,81 +1495,70 @@ def shard_kernel_check(torch, np, kb, sk, tsd, ScanParams, sc, one, codes,
         % (s, len(d.shard_bits), dev, d.shard_bits[s].shape[1] * 32, name,
            ms, "not measured" if dms is None else "%.4f ms" % dms, pms,
            bms, by, hits, 100 * bms / ms, name, one.t_pad, ums, gpu))
-
-    sc_one = tsd.DenseScanner(None, sc.rewards, batch=B, didx=one)
-    ct = torch.from_numpy(np.ascontiguousarray(fw)).to(d.device)
-    lt = torch.full((B,), READ_LEN, dtype=torch.int32, device=d.device)
-    batch_ms = {}
-    for tier in (0, 1):
-        a = [x.cpu() for x in sc._call(ct, lt, tier, 24 * B)]
-        b = [x.cpu() for x in sc_one._call(ct, lt, tier, 24 * B)]
-        if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])):
-            fail("sharded dense_scan_device tier %d disagrees with the "
-                 "unsharded image" % tier)
-        if int((a[0][:, 1] >> 3).sum()) <= 0:
-            fail("dense_scan_device tier %d emitted no template" % tier)
-        batch_ms[tier] = (
-            kb.cuda_ms(torch, lambda: sc._call(ct, lt, tier, 24 * B), 5),
-            kb.cuda_ms(torch, lambda: sc_one._call(ct, lt, tier, 24 * B),
-                       5))
-    say("dense_scan_device B %d L %d, sharded == unsharded (meta, flat) "
-        "at tier 0 and tier 1; ms a batch (CUDA events on the primary, "
-        "mean of 5) sharded / unsharded: tier 0 %.3f / %.3f, tier 1 %.3f / "
-        "%.3f  [%s]" % (B, L, batch_ms[0][0], batch_ms[0][1],
-                        batch_ms[1][0], batch_ms[1][1], gpu))
-    batch_stages(torch, kb, tsd, ScanParams, (sc, sc_one), codes2, lens2,
-                 starts2, rc_rows, ct, lt, gpu)
     return dict(name=name, ms=ms, device_ms=dms, plain_ms=pms,
                 bound_ms=bms, bound_by=by,
-                err=err, unsharded_ms=ums, batch_ms=batch_ms, runs=f,
+                err=err, unsharded_ms=ums, runs=f,
                 T=d.shard_bits[s].shape[1] * 32, t_pad=d.t_pad, B=B)
 
 
-def batch_stages(torch, kb, tsd, ScanParams, scanners, codes2, lens2,
-                 starts2, rc_rows, ct, lt, gpu):
-    """Where one batch's device time goes on the sharded image and on the
-    unsharded one, at tier 0 and tier 1: torch.profiler's device events
-    and ms a call of the front half, of the front half plus every shard's
-    gather and kernel call, and of the whole call (the differences are
-    the gathers and kernels, then the strand build and the epilogue),
-    with the whole call's top events; then one gather's CUDA-event ms
-    (the last shard's, and the unsharded table's)."""
-    B, L = ct.shape
+def sharded_batch(torch, np, tsd, sk, sc, one, codes, gpu):
+    """(f) One batch of the daemon's shape (B 2,048, L 128) at tier 0 and
+    tier 1 on the sharded image, replayed from its step graphs
+    (``sc._call``: the batch's copy in, the segments' replays and the
+    copies between them, meta and flat out): bit-equal to its eager step
+    (``dense_scan_device``), its plain version (that eager step with
+    ``run_score_rows_plain`` in the kernel's place) and the unsharded
+    image's replay and eager step.  Eager and replay ms a call (CUDA
+    events, median of ENTRY_REPS) and device events a call
+    (torch.profiler), sharded beside unsharded.  Returns {tier: {route:
+    (ms, events)}}."""
+    d = sc.didx
+    B, L = min(2048, len(codes)), 128
+    fw = np.full((B, L), 4, np.uint8)
+    fw[:, :READ_LEN] = codes[:B]
+    ct = torch.from_numpy(fw).to(d.device)
+    lt = torch.full((B,), READ_LEN, dtype=torch.int32, device=d.device)
+    uno = tsd.DenseScanner(None, sc.rewards, batch=B, didx=one)
+    got = {}
     for tier in (0, 1):
-        for label, sc in zip(("sharded", "unsharded"), scanners):
-            img, p = sc.didx, ScanParams(*sc._sparams(L, tier))
-            got = [top_events(torch, fn) for fn in (
-                lambda: tsd._strand_runs(codes2, lens2, img, p, starts2),
-                lambda: tsd._run_state(codes2, lens2, img, p, rc_rows,
-                                       starts2),
-                lambda: sc._call(ct, lt, tier, 24 * B))]
-            if None in got:
-                say("profiler, one B %d batch, tier %d, %s: no device "
-                    "events; not measured  [%s]" % (B, tier, label, gpu))
-                continue
-            (n0, m0, _), (n1, m1, _), (n2, m2, top) = got
-            say("profiler, one B %d batch, tier %d, %s (device events / ms "
-                "a call): front half %.0f / %.3f, gathers and kernels %.0f "
-                "/ %.3f, strand build and epilogue %.0f / %.3f; whole %.0f "
-                "/ %.3f; top: %s  [%s]"
-                % (B, tier, label, n0, m0, n1 - n0, m1 - m0, n2 - n1,
-                   m2 - m1, n2, m2, "; ".join("%s %.3f" % (n[:50], ms)
-                                               for n, ms in top), gpu))
-    p = ScanParams(*scanners[0]._sparams(L, 0))
-    rows = tsd._strand_runs(codes2, lens2, scanners[0].didx, p,
-                            starts2)["run_row"].long()
-    gathers = []
-    for sc in scanners:
-        img = sc.didx
-        s = len(img.shard_bits) - 1
-        tab, r = img.shard_bits[s], rows.to(img.devices[s])
-        with torch.cuda.device(img.devices[s]):
-            gathers.append(kb.cuda_ms(
-                torch, lambda: tab[r].contiguous(), 5))
-    say("one gather of a tier-0 batch's run rows [%d, %d, W32]: sharded "
-        "(last shard) %.3f ms, unsharded %.3f ms (CUDA events, mean of 5)"
-        "  [%s]" % (rows.shape[0], rows.shape[1], gathers[0], gathers[1],
-                    gpu))
+        cap = 24 * B
+        st = sc._statics(L, tier, cap)
+        ust = uno._statics(L, tier, cap)
+        runs = {
+            "sharded replay": lambda: sc._call(ct, lt, tier, cap),
+            "sharded eager": lambda: tsd.dense_scan_device(ct, lt, d, **st),
+            "unsharded replay": lambda: uno._call(ct, lt, tier, cap),
+            "unsharded eager": lambda: tsd.dense_scan_device(ct, lt, one,
+                                                             **ust)}
+        outs = {k: [x.cpu() for x in fn()] for k, fn in runs.items()}
+        real = tsd.run_score_rows
+        tsd.run_score_rows = sk.run_score_rows_plain
+        try:
+            outs["plain version"] = [x.cpu() for x in runs["sharded eager"]()]
+        finally:
+            tsd.run_score_rows = real
+        rep = outs["sharded replay"]
+        for k, o in outs.items():
+            if not all(x.dtype == y.dtype and torch.equal(x, y)
+                       for x, y in zip(rep, o)):
+                fail("phase (f): the sharded replay at tier %d differs from "
+                     "the %s" % (tier, k))
+        if int((rep[0][:, 1] >> 3).sum()) <= 0:
+            fail("dense_scan_device tier %d emitted no template" % tier)
+        got[tier] = {}
+        for k, fn in runs.items():
+            ev = top_events(torch, fn)
+            got[tier][k] = (call_ms(torch, fn), None if ev is None
+                            else ev[0])
+        say("phase (f) B %d L %d tier %d: the sharded replay == its eager "
+            "step == its plain version == the unsharded image's replay and "
+            "eager step (meta, flat); ms a call (CUDA events, median of %d) "
+            "/ device events a call (torch.profiler): %s  [%s]"
+            % (B, L, tier, ENTRY_REPS, "; ".join(
+                "%s %.4f / %s" % (k, m, "not measured" if n is None
+                                   else "%.1f" % n)
+                for k, (m, n) in got[tier].items()), gpu))
+    return got
 
 
 def top_events(torch, fn, reps=5, n=5):
@@ -1502,10 +1624,23 @@ def copy_ms(torch, d, runs, B, MB):
     return sorted(ts[1:])[10]
 
 
+def prepare_f(np, work, env, py_cli):
+    """Phase (f)'s data: the large panel's FASTA, its index build started
+    in the background, its reads."""
+    o = lambda n: os.path.join(work, n)  # noqa: E731
+    seqs = make_panel(o("big.fsa"), np, N_BIG_TEMPLATES, SEED + 9)
+    job = index_start(py_cli, env, o("big.fsa"), o("big"),
+                      o("big_index.log"))
+    codes = make_reads(o("big.fq"), seqs, np, SEED + 10)
+    return dict(job=job, codes=codes, n_tpl=len(seqs),
+                n_bp=sum(map(len, seqs)))
+
+
 def phase_f_sharded(torch, np, work, env, env_off, py_cli, native_ran,
-                    gpu):
-    """Index the panel, serve it sharded, drive both CLIs, check the
-    kernel and a batch, run the dry run.  Returns the phase's numbers."""
+                    gpu, prep):
+    """Wait for the panel's index, serve it sharded, drive both CLIs,
+    check the kernel and a batch, run the dry run.  Returns the phase's
+    numbers."""
     from kma_tpu_torch import kernel_bench as kb
     from kma_tpu_torch.config import Penalties
     from kma_tpu_torch.devserve import (DevClient, TorchDevServer,
@@ -1521,16 +1656,12 @@ def phase_f_sharded(torch, np, work, env, env_off, py_cli, native_ran,
     n_cards = torch.cuda.device_count()
     devices = (["cuda:%d" % i for i in range(n_cards)] if n_cards >= 2
                else ["cuda:0", "cuda:0"])
-    t0 = time.time()
-    seqs = make_panel(o("big.fsa"), np, N_BIG_TEMPLATES, SEED + 9)
-    index_db(py_cli, env, o("big.fsa"), o("big"), o("big_index.log"))
-    t_index = time.time() - t0
-    codes = make_reads(o("big.fq"), seqs, np, SEED + 10)
+    t_index = index_wait(prep["job"])
+    codes = prep["codes"]
     say("phase (f) panel: %d templates, %d bp (phase (c)'s families); "
-        "FASTA and index in %.1f s; %d reads of %d bp  [%s]"
-        % (len(seqs), sum(map(len, seqs)), t_index, N_READS, READ_LEN,
-           gpu))
-    del seqs
+        "indexed in %.1f s (in the background since phase (c)); %d reads "
+        "of %d bp  [%s]" % (prep["n_tpl"], prep["n_bp"], t_index, N_READS,
+                            READ_LEN, gpu))
 
     # one card holds this panel; an explicit budget under its one-card
     # footprint and over each shard's shards it
@@ -1543,6 +1674,10 @@ def phase_f_sharded(torch, np, work, env, env_off, py_cli, native_ran,
     if budget >= whole:
         fail("phase (f): a shard's footprint %d B is not under the "
              "one-card footprint %d B" % (budget, whole))
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = {c: (torch.cuda.memory_allocated(c), torch.cuda.memory_reserved(c))
+            for c in sorted(set(devices))}
     free = torch.cuda.mem_get_info(0)[0]
     t0 = time.time()
     srv = with_budget_mb(budget_mb, lambda: TorchDevServer(
@@ -1564,7 +1699,16 @@ def phase_f_sharded(torch, np, work, env, env_off, py_cli, native_ran,
                      for b in d.shard_bits), t_img, gpu))
     t0 = time.time()
     srv.warm([128], verbose=False)
-    say("sharded daemon warmed in %.1f s" % (time.time() - t0))
+    graphs, chain_g = srv.graphs, srv.chain_graphs
+    if graphs is None or {k.tier for k in graphs.graphs} != {0, 1}:
+        fail("the sharded daemon holds no tier-0 and tier-1 step graphs "
+             "after warm(): %s" % (None if graphs is None
+                                   else graph_keys(graphs)))
+    say("sharded daemon warmed in %.1f s; step graphs %s (each key %d "
+        "segments' graphs over %s); chain graphs %s; pools %.1f MB  [%s]"
+        % (time.time() - t0, graph_keys(graphs), 3 + 2 * len(devices),
+           devices, chain_keys(chain_g), graphs.pool_bytes() / 2 ** 20,
+           gpu))
     up = threading.Event()
     serve = threading.Thread(target=srv.serve, daemon=True, kwargs={
         "sock_path": socket_path(o("big")), "ready_cb": up.set})
@@ -1574,10 +1718,11 @@ def phase_f_sharded(torch, np, work, env, env_off, py_cli, native_ran,
 
     # the phase's main path: counts from zero
     reset_kernel_launches()
-    srv.requests.clear()
-    srv.dense_ms.clear()
-    srv.reads_scanned = srv.reads_overflow = 0
+    reset_counts(srv)
     d.shard_calls[:] = [0] * len(d.shard_calls)
+    cards = sorted(set(d.devices), key=str)
+    for c in cards:
+        torch.cuda.reset_peak_memory_stats(c)
     args = ["-i", o("big.fq"), "-t_db", o("big"), "-1t1"]
     kma = [os.path.join(HERE, "bin", "kma")]
     walls = {}
@@ -1624,26 +1769,50 @@ def phase_f_sharded(torch, np, work, env, env_off, py_cli, native_ran,
     launches = kernel_launches()
     calls = list(d.shard_calls)
     runs = launches["run_score_rows"] + launches["run_score_gathered"]
+    replays = sum(graphs.replays.values())
+    chain_rep = sum(chain_g.replays.values())
+    # the daemon's own: above what each card held before its image
+    mem = {str(c): (torch.cuda.max_memory_allocated(c) - base[str(c)][0],
+                    torch.cuda.max_memory_reserved(c) - base[str(c)][1],
+                    sum(f.total for f, x in zip(d.footprint, d.devices)
+                        if x == c)) for c in cards}
     say("phase (f) path counts: requests %s; kernel launches %s; "
-        "run-scoring calls a shard %s; step graphs %s (a sharded image "
-        "runs eager)" % (dict(srv.requests), launches, calls, srv.graphs))
+        "run-scoring calls a shard %s (from the replays); step graphs %s, "
+        "%d replays; chain graphs %s, %d replays; peak device memory above "
+        "the card's before the image (allocated / reserved / the footprint "
+        "of the shards on the card) %s; the pools %.1f MB  [%s]"
+        % (dict(srv.requests), launches, calls, graph_keys(graphs),
+           replays, chain_keys(chain_g), chain_rep, "; ".join(
+               "%s %.1f / %.1f / %.1f MB" % (c, a / 2 ** 20, r / 2 ** 20,
+                                             f / 2 ** 20)
+               for c, (a, r, f) in mem.items()),
+           graphs.pool_bytes() / 2 ** 20, gpu))
     if min(calls) <= 0 or sum(calls) != runs:
         fail("phase (f): run-scoring launches %d, calls a shard %s: not "
              "every shard's kernel ran on the card" % (runs, calls))
-    if srv.graphs is not None:
-        fail("phase (f): the sharded daemon replays step graphs")
+    if replays < srv.requests["dense"] or (
+            native_ran and chain_rep < srv.requests["chain"]):
+        fail("phase (f): the sharded daemon served %d dense and %d chain "
+             "requests from %d and %d graph replays"
+             % (srv.requests["dense"], srv.requests["chain"], replays,
+                chain_rep))
+    for c, (a, r, f) in mem.items():
+        if max(a, r) > f:
+            fail("phase (f): peak device memory on %s (%d B allocated, %d "
+                 "B reserved) is over its shards' footprint %d B"
+                 % (c, a, r, f))
     say("phase (f): -device on == -device off for %s; %d templates "
         "reported" % (", ".join(walls), n_res))
 
-    # kernel against plain, one batch sharded against unsharded (launches
-    # past this point do not count)
+    # kernel against plain, one batch replayed against its eager step,
+    # its plain version and the unsharded image (launches past this
+    # point do not count)
     one = tsd.DenseIndex.from_host(srv.idx, d.device,
                                    mem_budget_bytes=1 << 40)
-    # the unsharded image's eager step, as the sharded image runs it
-    one.graphs = None
     sc = next(iter(srv.scanners.values()))
     chk = shard_kernel_check(torch, np, kb, sk, tsd, ScanParams, sc, one,
                              codes, gpu)
+    batch = sharded_batch(torch, np, tsd, sk, sc, one, codes, gpu)
     cms = copy_ms(torch, d, chk.pop("runs"), chk["B"], sc.TIERS[0][1])
     if cms is None:
         say("cross-device copies of one batch: none, both shards on %s  "
@@ -1671,6 +1840,7 @@ def phase_f_sharded(torch, np, work, env, env_off, py_cli, native_ran,
         % (dr, t_dry, dry["grid"], gpu))
     return dict(walls=walls, dense_ms=dense_ms, scanned=scanned,
                 overflow=overflow, launches=runs, calls=calls,
+                replays=replays, chain_replays=chain_rep, batch=batch,
                 copy_ms=cms, t_index=t_index, t_dry=t_dry, whole=whole,
                 budget=budget,
                 devices=devices, **chk)
@@ -1699,14 +1869,22 @@ def report_f(big, gpu):
             % (name, big["devices"], N_READS / on, on, N_READS / off, off,
                gpu))
     fms = big["dense_ms"]
-    say("phase (f) dense op (sharded): %d requests, median %.2f ms, max "
-        "%.2f ms a request; overflow %d of %d reads; one shard's %s call "
+    say("phase (f) dense op (sharded, replayed): %d requests, median %.2f "
+        "ms, max %.2f ms a request, %d batches replayed; %d chain requests' "
+        "chunks replayed; overflow %d of %d reads; one shard's %s call "
         "%.4f ms (unsharded image %.4f ms); cross-device copies of a batch "
         "%s  [%s]"
-        % (len(fms), fms[len(fms) // 2], fms[-1], big["overflow"],
-           big["scanned"], big["name"], big["ms"], big["unsharded_ms"],
+        % (len(fms), fms[len(fms) // 2], fms[-1], big["replays"],
+           big["chain_replays"], big["overflow"], big["scanned"],
+           big["name"], big["ms"], big["unsharded_ms"],
            "none (one card)" if big["copy_ms"] is None
            else "%.3f ms" % big["copy_ms"], gpu))
+    for tier, rows in big["batch"].items():
+        say("phase (f) B 2,048 tier %d batch, ms a call / device events a "
+            "call: %s  [%s]" % (tier, "; ".join(
+                "%s %.4f / %s" % (k, m, "not measured" if n is None
+                                   else "%.1f" % n)
+                for k, (m, n) in rows.items()), gpu))
 
 
 def report_e(cg, gpu):
@@ -1739,9 +1917,12 @@ def report_e(cg, gpu):
             "%.2f ms (%d requests, max %.2f)  [%s]"
             % (name, med(ms), len(ms), min(ms), max(ms), med(pms),
                len(pms), max(pms), gpu))
-    cms = cg["chain_ms"]
-    say("cgMLST chain op: %d requests, median %.2f ms, max %.2f ms  [%s]"
-        % (len(cms), med(cms), max(cms) if cms else float("nan"), gpu))
+    cms, cc = cg["chain_ms"], cg["chain_cmp"]
+    say("cgMLST chain op (replayed): %d requests, median %.2f ms, max %.2f "
+        "ms; one request of %d reads (L %d) replayed %.4f ms, eager %.4f ms"
+        "  [%s]" % (len(cms), med(cms), max(cms) if cms else float("nan"),
+                    cc["rows"], cc["L"], cc["replay_ms"], cc["eager_ms"],
+                    gpu))
     say("cgMLST dense image: V %d, t_pad %d, footprint %.1f MB, budget "
         "read %.1f MB, built in %.1f s; peak device memory of the -1t1 "
         "runs %.1f MB allocated, %.1f MB reserved (the step graphs' pool "
@@ -2166,6 +2347,7 @@ def main():
     import numpy as np
     sys.path.insert(0, HERE)
     t_start = time.time()
+    phase_s = {}
 
     # (a) card + kernel build
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2241,8 +2423,10 @@ def main():
     profile_kernels(torch, gpu, to_profile)
     d2h = make_d2h(torch, d.device)
 
+    phase_s["a, b"] = time.time() - t_start
+
     # (c) main path
-    t0 = time.time()
+    t_c = t0 = time.time()
     srv.warm([128])
     say("daemon warmed in %.1f s" % (time.time() - t0))
     serve = serve_thread(srv, socket_path(db), "daemon")
@@ -2335,6 +2519,13 @@ def main():
     say("outputs: -device on == -device off (.res/.fsa/.aln bytes, "
         ".frag.gz content) for %s; %d templates reported" % (
             "both CLIs" if native_ran else "the python CLI", n_res))
+    # phases (e) and (f)'s data, their index builds in the background
+    # from here on (the runs timed above are done)
+    t0 = time.time()
+    prep_e = prepare_e(np, work, env, py_cli)
+    prep_f = prepare_f(np, work, env, py_cli)
+    say("phases (e) and (f): data written in %.1f s, both index builds "
+        "started in the background" % (time.time() - t0))
     # -device on with no daemon started beforehand: the launcher
     run_wall, run_served, run_runs = launcher_run(env, reads, db, o,
                                                   gpu)
@@ -2343,10 +2534,19 @@ def main():
 
     # the default chain mode, PE and -hmm: counts from zero again
     reset_kernel_launches()
-    srv.requests.clear()
-    srv.chain_ms.clear()
+    reset_counts(srv)
+    chain_g = srv.chain_graphs
+    if chain_g is None or not chain_g.graphs:
+        fail("the panel daemon holds no chain graph after warm()")
     chain_walls = phase_c_chain(srv, env, env_off, py_cli, native_ran,
                                 reads, pe1, pe2, db, o)
+    chain_replays = sum(chain_g.replays.values())
+    say("default-mode path: %d chain requests served from %d chain graph "
+        "replays; chain graphs %s  [%s]" % (
+            srv.requests["chain"], chain_replays, chain_keys(chain_g), gpu))
+    if chain_replays < srv.requests["chain"] or chain_replays <= 0:
+        fail("the default-mode runs' chain requests were not replayed from "
+             "chain graphs")
     cli = DevClient.connect(db)
     if cli is None:
         fail("cannot reach the daemon for the op-level phase")
@@ -2356,6 +2556,9 @@ def main():
     chain_ms = list(srv.chain_ms)
     cc_n, cc_ms = chain_client_ms(torch, np, cli, srv, codes)
     cli.close()
+    chain_cmp = {n: chain_eager_replay(torch, np, srv, reads, READ_LEN, n,
+                                       gpu, "panel")
+                 for n in (2048, 16384)}
     say("default-mode path counts: requests %s; kernel launches %s"
         % (chain_requests, chain_launches))
     served_chain = served_chain_runs(env_off, reads, pe1, pe2, db, o, gpu,
@@ -2375,15 +2578,21 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
 
+    phase_s["c, g"] = time.time() - t_c
+
     # (e) the cgMLST-shaped scheme: the dense scanner on one card, then
     # the pair-stream scanner under a budget of 0; counts from zero again
+    t0 = time.time()
     cg = phase_e_big_db(torch, np, work, env, env_off, py_cli, native_ran,
-                        gpu, DEVICE)
+                        gpu, DEVICE, prep_e)
+    phase_s["e"] = time.time() - t0
 
     # (f) the large panel, its columns sharded under an explicit budget:
     # counts from zero again, inside the phase
+    t0 = time.time()
     big = phase_f_sharded(torch, np, work, env, env_off, py_cli,
-                          native_ran, gpu)
+                          native_ran, gpu, prep_f)
+    phase_s["f"] = time.time() - t0
     # (d) rates
     dms = sorted(dense_ms)
     say("python CLI -device on: %.1f reads/s (%.2f s wall, warm daemon)  "
@@ -2438,9 +2647,15 @@ def main():
     say("device-to-host copy of int32 rows: widest chain reply %.3f ms; "
         "the clients' cell budget, 2 x 8M cells (64 MB), %.3f ms  [%s]"
         % (d2h_wide, d2h_budget, gpu))
+    for n, c in chain_cmp.items():
+        say("panel chain request of %d reads (L %d): replayed %.4f ms, "
+            "eager %.4f ms  [%s]" % (n, c["L"], c["replay_ms"],
+                                     c["eager_ms"], gpu))
     report_e(cg, gpu)
     report_f(big, gpu)
-    say("total %.1f s" % (time.time() - t_start))
+    say("phase seconds: %s; total %.1f s" % (
+        ", ".join("(%s) %.1f" % kv for kv in phase_s.items()),
+        time.time() - t_start))
 
     def entry(t, n):
         ms, dms, pms, bms, by = t

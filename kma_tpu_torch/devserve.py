@@ -29,12 +29,14 @@ pair-stream scanner (``mapping/scan_fast.py``).  Its ``dense`` op runs
 on the device; its ``chain`` op is refused, so chain clients take the
 host.
 
-On a CUDA card the ``dense`` op of the unsharded dense image and of the
+On CUDA cards the ``dense`` op of the dense image (a sharded one as its
+segments, one graph a segment on the segment's card) and of the
 pair-stream image replays one captured CUDA graph of the scan step a
 static shape (``scan_dense.StepGraphs``, the counterpart of the JAX jit
-cache), at tier 0 and at the wide tier; ``warm()`` captures the hot
-shapes, and ``graphs`` counts captures and replays by key.  The sharded
-image and the other ops run eager.
+cache), at tier 0 and at the wide tier, and the ``chain`` op one graph
+of the lookup a rows class and pad (``chain_graphs``); ``warm()``
+captures the hot shapes, and ``graphs`` and ``chain_graphs`` count
+captures and replays by key.  The NW and pileup ops run eager.
 
 An op that raises answers ``{ok: 0, err}`` and the daemon lives on, as
 the JAX daemon does; the client's host takes the work over.  A
@@ -71,7 +73,7 @@ from . import envelope
 from .config import Penalties
 from .device import DeviceLike, resolve
 from .index.format import load_index
-from .mapping.chain_device import chain_lookup, chain_lookup_dense
+from .mapping.chain_device import CHAIN_ROWS, chain_lookup_dense
 from .mapping.device_index import DeviceIndex
 from .mapping.scan_dense import DEFAULT_BATCH, DenseScanner, dense_image
 from .mapping.scan_fast import FastScanner
@@ -367,10 +369,17 @@ class TorchDevServer:
     @property
     def graphs(self):
         """The scan step's graphs (``scan_dense.StepGraphs``): captures
-        and replays by key, on an unsharded dense image or the
-        pair-stream image on a CUDA card; None where the dense op runs
-        eager (the CPU, a sharded image)."""
+        and replays by key, on a dense image (sharded or not) or the
+        pair-stream image on CUDA cards; None where the dense op runs
+        eager (the CPU)."""
         return self.didx.graphs
+
+    @property
+    def chain_graphs(self):
+        """The chain op's graphs (a dense image's ``chain_graphs`` on a
+        card); None where it runs eager (the CPU) or is refused (the
+        pair-stream image)."""
+        return getattr(self.didx, "chain_graphs", None)
 
     # -- ops ---------------------------------------------------------------
 
@@ -539,19 +548,23 @@ class TorchDevServer:
                          else " (graphs captured: %d)"
                          % sum(self.graphs.captures.values())),
                       file=sys.stderr)
-        # chain lookup shape (default mode, PE and -hmm)
+        # chain lookup shapes (default mode, PE and -hmm): on a card the
+        # graphs of the clients' request rows (CHAIN_ROWS)
+        cg = self.chain_graphs
         if self.scanner_kind == "dense" and self.didx.kmersize <= 16:
             for L in lengths:
                 t0 = time.time()
-                codes = torch.from_numpy(rng.integers(
-                    0, 4, (self.batch, L), dtype=np.uint8)).to(self.device)
-                lens = torch.full((self.batch,), min(100, L),
-                                  dtype=torch.int32, device=self.device)
-                for rows in chain_lookup(self.didx, codes, lens):
-                    rows.cpu()
+                for rows in (CHAIN_ROWS if cg is not None
+                             else (self.batch,)):
+                    chain_lookup_dense(
+                        self.didx, self.idx,
+                        rng.integers(0, 4, (rows, L), dtype=np.uint8),
+                        np.full(rows, min(100, L), np.int32))
                 if verbose:
-                    print("# devserve: warmed chain L=%d in %.1fs"
-                          % (L, time.time() - t0), file=sys.stderr)
+                    print("# devserve: warmed chain L=%d in %.1fs%s"
+                          % (L, time.time() - t0, "" if cg is None
+                             else " (chain graphs captured: %d)"
+                             % sum(cg.captures.values())), file=sys.stderr)
 
 
     # -- serve loop ----------------------------------------------------------

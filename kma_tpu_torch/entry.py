@@ -22,7 +22,7 @@ on the CPU it takes the plain version.
 
 from __future__ import annotations
 
-from typing import Callable, List, Tuple
+from typing import Callable, Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -98,6 +98,22 @@ def entry(device: DeviceLike = None):
     return fn, image_args(scanner.didx, codes, lengths, dev)
 
 
+#: each card's capture stream (``capture_stream``)
+_CAPTURE_STREAMS: Dict[int, "torch.cuda.Stream"] = {}
+
+
+def capture_stream(dev: torch.device) -> "torch.cuda.Stream":
+    """The stream every capture on the card ``dev`` runs on.  One a card:
+    blocks a capture frees in a shared pool are reused only by captures
+    on the same stream (the caching allocator keeps free blocks by
+    stream), and ``torch.cuda.graph``'s own default is one stream for
+    the process, on the card it was first made on."""
+    i = dev.index if dev.index is not None else torch.cuda.current_device()
+    if i not in _CAPTURE_STREAMS:
+        _CAPTURE_STREAMS[i] = torch.cuda.Stream(torch.device("cuda", i))
+    return _CAPTURE_STREAMS[i]
+
+
 def capture(fn: Callable, args, pool=None):
     """``fn(*args)`` taken whole into one ``torch.cuda.CUDAGraph``:
     WARMUP eager calls on a side stream, then the capture, whose
@@ -107,7 +123,8 @@ def capture(fn: Callable, args, pool=None):
     reruns the step on the tensors of ``args`` as they then hold, into
     those outputs.  Raises when the step syncs the host or leaves the
     capturing stream.  The one place the port captures: the daemon's
-    step graphs (``mapping.scan_dense.StepGraphs``) call it."""
+    step graphs (``mapping.scan_dense.StepGraphs``) call it, once for
+    each segment of a sharded step, on the segment's card."""
     dev = args[0].device
     if dev.type != "cuda":
         raise ValueError("capture: tensors on %s, not a CUDA card" % dev)
@@ -120,7 +137,8 @@ def capture(fn: Callable, args, pool=None):
     stream.wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     try:
-        with torch.cuda.device(dev), torch.cuda.graph(graph, pool=pool):
+        with torch.cuda.device(dev), torch.cuda.graph(
+                graph, pool=pool, stream=capture_stream(dev)):
             out: List[torch.Tensor] = fn(*args)
     finally:
         # a capture that fails can raise in torch.cuda.graph's exit

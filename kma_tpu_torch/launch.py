@@ -46,20 +46,27 @@ SERVE_THREAD = "kma_tpu_torch-run-devserve"
 
 def request_line(srv: TorchDevServer) -> str:
     """``dense 10, chain 0, nw_qext 1 requests on cuda:0, graphs 2
-    (replays 40), faults 0``, or ``..., faults dense 2
-    (RuntimeError('...'))`` (``fault_line``).  ``graphs N (replays M)``,
-    where the dense op replays graphs (``srv.graphs``: a dense or
-    pair-stream image on a card): N graphs of the scan step captured, M
-    batches replayed from them."""
+    (replays 40), chain graphs 2 (replays 0), faults 0``, or ``...,
+    faults dense 2 (RuntimeError('...'))`` (``fault_line``).  ``graphs N
+    (replays M)``, where the dense op replays graphs (``srv.graphs``: a
+    dense image, sharded or not, or the pair-stream image on cards): N
+    keys of the scan step captured, M batches replayed from them;
+    ``chain graphs`` the same of the chain op (``srv.chain_graphs``: a
+    dense image's on a card)."""
     ops = list(REPORTED_OPS) + sorted(
         op for op, n in srv.requests.items()
         if n and op not in REPORTED_OPS + ("hello", "dense_pipelined"))
-    g = srv.graphs
+    # bench_torch.py passes a namespace of the run's counts, with no
+    # chain graphs
+    graphs = "".join(
+        "%s %d (replays %d), " % (name, sum(g.captures.values()),
+                                  sum(g.replays.values()))
+        for name, g in (("graphs", srv.graphs),
+                        ("chain graphs", getattr(srv, "chain_graphs", None)))
+        if g is not None)
     return "%s requests on %s, %s%s" % (", ".join(
         "%s %d" % (op, srv.requests[op]) for op in ops), srv.device,
-        "" if g is None else "graphs %d (replays %d), " % (
-            sum(g.captures.values()), sum(g.replays.values())),
-        fault_line(srv.faults, srv.first_fault))
+        graphs, fault_line(srv.faults, srv.first_fault))
 
 
 def start(db: str, device: DeviceLike = None,
@@ -88,8 +95,9 @@ def start(db: str, device: DeviceLike = None,
     srv.warm(verbose=False)
     t_warm = time.perf_counter()
     reset_kernel_launches()
-    if srv.graphs is not None:
-        srv.graphs.replays.clear()      # the run's replays, not warm()'s
+    for g in (srv.graphs, srv.chain_graphs):
+        if g is not None:
+            g.replays.clear()           # the run's replays, not warm()'s
     stages = ([("set-up", setup_s)] if setup_s is not None else []) + [
         ("CUDA init", t_cuda - t0), ("kernel load", t_lib - t_cuda),
         ("index read", t_srv - t_lib - srv.build_s),

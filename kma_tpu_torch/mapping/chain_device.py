@@ -4,7 +4,12 @@ savekmers.c:5127-5944).
 
 Every k-mer window of a batch is looked up in the dense index's cuckoo
 or mega table for both strands; the reverse-complement side reverses
-the packed forward k-mer in registers.  The per-window list ids feed
+the packed forward k-mer in registers.  On a CUDA card the daemon's op
+replays one CUDA graph of the lookup a static shape (the image's
+``chain_graphs``, a ``scan_dense.StepGraphs`` keyed by ``chain_key``),
+as the JAX package runs one jitted ``_chain_lookup`` a shape; a chunk's
+rows are padded to a rows class (``chain_rows``), so a run's short last
+request replays the key of the requests before it.  The per-window list ids feed
 the native chain splicer, the PE pair combiners and the HMM walk, which
 stay ``kma_tpu``'s jax-free clients (``DeviceChainStream``,
 ``DevicePELookup``, ``DeviceHmmStream`` with ``lookup=``); the daemon's
@@ -25,9 +30,12 @@ import numpy as np
 import torch
 
 from .device_index import batch_kmers, lookup_voffsets, valid_windows
-from .scan_dense import CHAIN_WINDOWS, DenseIndex
+from .scan_dense import CHAIN_GRAPHS, CHAIN_WINDOWS, DenseIndex, StepGraphs
 
 _M32 = 0xFFFFFFFF
+#: the clients' chain request rows: the Python ``DeviceChainStream``'s
+#: batch and the native CLI's slice (``KMA_DEVSLICE``, the card's figure)
+CHAIN_ROWS = (2048, 16384)
 
 
 def revcomp_kmers(kmers: torch.Tensor, k: int) -> torch.Tensor:
@@ -56,14 +64,75 @@ def chain_lookup(didx: DenseIndex, codes: torch.Tensor,
     if codes.shape[1] < k:
         raise ValueError("codes: L=%d is shorter than k=%d"
                          % (codes.shape[1], k))
-    kmers = batch_kmers(codes, k)
-    valid = valid_windows(codes, lengths, k)
-    rows_f = lookup_voffsets(didx.exist, didx.kv, kmers, didx.size, 0,
-                             didx.mega, -1)
-    rows_rc = lookup_voffsets(didx.exist, didx.kv, revcomp_kmers(kmers, k),
-                              didx.size, 0, didx.mega, -1)
-    return (torch.where(valid, rows_f, -1).to(torch.int32),
-            torch.where(valid, rows_rc, -1).to(torch.int32))
+    return chain_step(didx)(codes, lengths, didx.exist, didx.kv)
+
+
+def chain_step(didx: DenseIndex):
+    """The lookup as a pure function of (codes, lengths, exist, kv) at
+    the image's statics (the JAX jit's ``k``, ``mega``, ``size``,
+    ``max_probe``): what a chain graph captures."""
+    k, size, mega = didx.kmersize, didx.size, didx.mega
+
+    def fn(codes, lengths, exist, kv):
+        kmers = batch_kmers(codes, k)
+        valid = valid_windows(codes, lengths, k)
+        rows_f = lookup_voffsets(exist, kv, kmers, size, 0, mega, -1)
+        rows_rc = lookup_voffsets(exist, kv, revcomp_kmers(kmers, k), size,
+                                  0, mega, -1)
+        return (torch.where(valid, rows_f, -1).to(torch.int32),
+                torch.where(valid, rows_rc, -1).to(torch.int32))
+
+    return fn
+
+
+def chain_key(didx: DenseIndex, rows: int, L: int) -> tuple:
+    """A chain graph's key: the static arguments of the JAX jit of
+    ``_chain_lookup`` (kma_tpu/mapping/chain_device.py:39-41: k, mega,
+    size, max_probe), the rows and L of its shape, the device."""
+    return ("chain", didx.kmersize, didx.mega, didx.size, didx.max_probe,
+            int(rows), int(L), str(didx.device))
+
+
+def chain_rows(n: int, L: int, k: int) -> int:
+    """Rows a chunk of ``n`` reads padded to L is padded to: the
+    smallest of the clients' request rows (CHAIN_ROWS) that holds it,
+    else a full chunk (CHAIN_WINDOWS windows, one row at least)."""
+    full = max(1, CHAIN_WINDOWS // max(L - k + 1, 1))
+    return min(full, next((r for r in CHAIN_ROWS if r >= n), full))
+
+
+def chain_graphs(capture=None, pools=None):
+    """A graph cache for the chain lookup (``scan_dense.StepGraphs`` of a
+    step that reads the image's ``exist`` and ``kv`` and launches no
+    hand-written kernel) in ``pools`` (shared with the dense graphs'),
+    as ``DenseIndex`` makes one on a card; ``capture`` as there."""
+    return StepGraphs(capture, tensors=("exist", "kv"), kernels=(),
+                      pools=pools, max_graphs=CHAIN_GRAPHS)
+
+
+def _chunk(didx: DenseIndex, codes: np.ndarray, lengths: np.ndarray):
+    """(rows_f, rows_rc) of one chunk on the host: replayed from the
+    image's chain graphs at the chunk's rows class when it has them,
+    the padding rows (length 0, all -1) cut off, else eager."""
+    dev, (n, L) = didx.device, codes.shape
+    g = didx.chain_graphs
+    if g is None:
+        rows = chain_lookup(didx, torch.from_numpy(codes).to(dev),
+                            torch.from_numpy(lengths).to(dev))
+        return tuple(r.cpu().numpy() for r in rows)
+    if didx.kmersize > 16:
+        raise NotImplementedError("device chain lookup needs k <= 16")
+    if L < didx.kmersize:
+        raise ValueError("codes: L=%d is shorter than k=%d"
+                         % (L, didx.kmersize))
+    rows = chain_rows(n, L, didx.kmersize)
+    c = np.full((rows, L), 4, np.uint8)
+    ln = np.zeros(rows, np.int32)
+    c[:n], ln[:n] = codes, lengths
+    out = g.run(chain_key(didx, rows, L), chain_step(didx),
+                torch.from_numpy(c).to(dev), torch.from_numpy(ln).to(dev),
+                didx)
+    return tuple(r[:n].cpu().numpy() for r in out)
 
 
 def chain_lookup_dense(didx: DenseIndex, idx, codes: np.ndarray,
@@ -72,25 +141,22 @@ def chain_lookup_dense(didx: DenseIndex, idx, codes: np.ndarray,
     in, numpy (rows_f, rows_rc) [B, W] int32 out, equal to kma_tpu's
     ``chain_lookup_dense`` at every W.  The rows go through the device
     in chunks of at most CHAIN_WINDOWS windows (one row at least), the
-    workspace the dense footprint leaves the op."""
+    workspace the dense footprint leaves the op; on a card each chunk
+    replays the image's chain graph of its shape (``_chunk``) and syncs
+    once, for its host copy."""
     if int(idx.kmersize) != didx.kmersize:
         raise ValueError("index and device image disagree on k")
-    dev = didx.device
     codes = np.ascontiguousarray(codes, np.uint8)
     lengths = np.ascontiguousarray(lengths, np.int32)
     B, L = codes.shape
     step = max(1, CHAIN_WINDOWS // max(L - didx.kmersize + 1, 1))
     if B <= step:
-        rows = chain_lookup(didx, torch.from_numpy(codes).to(dev),
-                            torch.from_numpy(lengths).to(dev))
-        return tuple(r.cpu().numpy() for r in rows)
+        return _chunk(didx, codes, lengths)
     out = None
     for r0 in range(0, B, step):
-        rows = chain_lookup(didx, torch.from_numpy(codes[r0: r0 + step]
-                                                   ).to(dev),
-                            torch.from_numpy(lengths[r0: r0 + step]).to(dev))
+        rows = _chunk(didx, codes[r0: r0 + step], lengths[r0: r0 + step])
         if out is None:
             out = tuple(np.empty((B, r.shape[1]), np.int32) for r in rows)
         for o, r in zip(out, rows):
-            o[r0: r0 + step] = r.cpu().numpy()
+            o[r0: r0 + step] = r
     return out

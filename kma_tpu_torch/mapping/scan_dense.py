@@ -29,9 +29,12 @@ for the CPU) or an explicit budget (``mem_budget_bytes``,
 ``KMA_TPU_DENSE_BUDGET_MB``).  The table is built on the device in row
 chunks, so no host copy of it exists.
 
-On a CUDA card an unsharded image's batches replay one captured CUDA
-graph of the step a static shape (``StepGraphs``), as the JAX package
-runs one jitted program a static shape.
+On CUDA cards an image's batches replay captured CUDA graphs of the
+step, one set a static shape (``StepGraphs``), as the JAX package runs
+one jitted program a static shape: one graph of the whole step on an
+unsharded image; on a sharded one a graph of each segment of the step
+between two crossings of devices (``ShardedStep``), each captured on its
+own device, with copies between them and no host sync.
 
 A DB whose footprint is over one device's budget keeps the dense
 scan when two or more devices are given: the table's template columns
@@ -54,6 +57,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import functools
 import math
 import os
 import sys
@@ -110,6 +114,13 @@ CHAIN_WINDOWS = 1 << 22
 #: 57.0 on a cuckoo table, 45.0 on a mega table; 57.04 on an H100 with
 #: max_memory_allocated, the allocator's 512-byte rounding)
 CHAIN_BYTES_A_WINDOW = 58
+#: chain graphs an image's ``chain_graphs`` holds at most (keys are the
+#: rows classes of chain_device.CHAIN_ROWS a read pad)
+CHAIN_GRAPHS = 4
+#: bytes a window a chain graph's static inputs and outputs hold: its
+#: codes (1 a base, L/W <= 1.14 at the smallest pad) and lengths, its
+#: two int32 rows
+CHAIN_GRAPH_BYTES_A_WINDOW = 10
 #: int64 words a chunk of the table build accumulates (256 MB)
 _BUILD_CHUNK_WORDS = 1 << 25
 
@@ -174,6 +185,36 @@ def graph_bytes(batch: int, t_pad: int, L: int = FOOTPRINT_READ_PAD,
     return MAX_GRAPHS * held + copies
 
 
+def plan_bytes(batch: int, t_pad: int, n_db: int,
+               L: int = FOOTPRINT_READ_PAD, k: int = 16) -> Tuple[int, ...]:
+    """Bytes the step graphs of an image sharded over ``n_db`` devices
+    hold on each shard beside its pool (whose intermediates are one
+    batch's workspace, counted in IN_FLIGHT): the plans' buffers
+    (``ShardedStep``: one set a device that every key shares, counted at
+    each tier's shapes, since a key of the larger tier grows them) and,
+    on the primary, the output copies ``graph_bytes`` counts."""
+    W = max(L - k + 1, 1)
+    cols = 32 * (t_pad // 32 // n_db)
+    prim = shard = 0
+    for tier, ((rc, bc), rows) in enumerate(zip(TIERS, (batch, WIDE_ROWS))):
+        B = batch_rows(rows, L, k)
+        z = _plan_sizes(B, max(1, min(rc, W)), n_db, min(bc, t_pad, cols),
+                        tier == 0)
+        flat = FLAT_HEADROOM * B if tier == 0 else 2 * min(bc, t_pad) * B
+        # runs, the selection and a shard's candidates (int32), its row
+        # maxima; the primary's codes, lengths, run_ov, the strand choice
+        # (int64), every shard's maxima and candidates, meta and flat
+        own = 4 * (z["runs"] + z["cands"] + 2 * z["G"])
+        shard += own
+        prim += own + B * (L + 4) + z["G"] + 16 * B + 4 * (
+            (n_db - 1) * (z["G"] + z["cands"])) + 8 * B + 4 * flat
+    rows0, rows1 = batch_rows(batch, L, k), batch_rows(WIDE_ROWS, L, k)
+    out0 = rows0 * 8 + FLAT_HEADROOM * rows0 * 4
+    out1 = rows1 * 8 + 2 * min(TIERS[1][1], t_pad) * rows1 * 4
+    copies = IN_FLIGHT * -(-REQUEST_READS // rows0) * out0 + out1
+    return (prim + copies,) + (shard,) * (n_db - 1)
+
+
 @dataclasses.dataclass(frozen=True)
 class Footprint:
     """Bytes a dense image and its scans take on one device."""
@@ -184,10 +225,11 @@ class Footprint:
     #: the other ops' headroom (primary only): one chunk of the chain
     #: op (232 MiB), which also holds an NW request of the clients' size
     #: (a few MB) or the pileup counts of a template of a few Mbp (48 B
-    #: a base)
+    #: a base), and the chain graphs' static inputs and outputs
+    #: (CHAIN_GRAPHS chunks at CHAIN_GRAPH_BYTES_A_WINDOW)
     ops: int
     #: the step graphs' inputs, outputs and output copies (an unsharded
-    #: image: ``graph_bytes``; a sharded one replays no graph)
+    #: image: ``graph_bytes``; a sharded one: ``plan_bytes``)
     graphs: int = 0
 
     @property
@@ -216,10 +258,12 @@ def dense_footprint(n_lists: int, t_pad: int, hash_bytes: int,
              for tier, ((rc, bc), rows) in enumerate(
                  zip(TIERS, (batch, WIDE_ROWS)))]
     ws = max(tiers, key=lambda t: sum(t.values()))
-    ops = CHAIN_BYTES_A_WINDOW * CHAIN_WINDOWS
-    graphs = graph_bytes(batch, t_pad, L, k) if n_db == 1 else 0
+    ops = (CHAIN_BYTES_A_WINDOW + CHAIN_GRAPHS * CHAIN_GRAPH_BYTES_A_WINDOW
+           ) * CHAIN_WINDOWS
+    graphs = (graph_bytes(batch, t_pad, L, k),) if n_db == 1 \
+        else plan_bytes(batch, t_pad, n_db, L, k)
     return tuple(Footprint(n_lists * w * 4, hash_bytes if s == 0 else 0, ws,
-                           ops if s == 0 else 0, graphs)
+                           ops if s == 0 else 0, graphs[s])
                  for s in range(n_db))
 
 
@@ -356,18 +400,24 @@ class DenseIndex:
     #: each shard's footprint and the budget it was held to (from_host)
     footprint: Tuple[Footprint, ...] = ()
     budget: Tuple[int, ...] = ()
-    #: the dense step's graphs (an unsharded image on a CUDA card; None
-    #: elsewhere: that image's scans run eager)
+    #: the dense step's graphs (an image on CUDA cards, sharded or not;
+    #: None elsewhere: that image's scans run eager)
     graphs: Optional["StepGraphs"] = None
+    #: the chain op's graphs (``chain_device.chain_lookup_dense``) on the
+    #: primary, sharing the dense graphs' pools; None where ``graphs`` is
+    chain_graphs: Optional["StepGraphs"] = None
 
     def __post_init__(self):
         if not self.shard_bits:
             self.shard_bits, self.devices = (self.bits,), (self.device,)
         if not self.shard_calls:
             self.shard_calls = [0] * len(self.shard_bits)
-        if self.graphs is None and not self.sharded \
-                and self.device.type == "cuda":
+        if self.graphs is None and self.device.type == "cuda":
+            from .chain_device import chain_graphs  # it imports this module
             self.graphs = StepGraphs()
+            # the daemon's op lock serialises the chain op with the dense
+            # op, so their graphs share one pool a card (StepGraphs)
+            self.chain_graphs = chain_graphs(pools=self.graphs.pools)
 
     @classmethod
     def from_host(cls, idx: KmaIndex, device: DeviceLike = None,
@@ -628,9 +678,8 @@ def _shard_ties(sc, fi, inc, best, p: ScanParams, t_pad, w0: int,
 def _ties(shards, rows, best, p: ScanParams, t_pad, proxi_frac, dev):
     """Phase 2 of an epilogue: every shard selects its ties of ``rows``
     (None: every row) against the global ``best`` and takes its local
-    top-k; the candidates meet on ``dev`` for one top-MB.  Returns (tids
-    [n, MB] int32 in append order, n_best [n], tie_ov [n])."""
-    MB = min(p.best_cap, t_pad)
+    top-k; the candidates meet on ``dev`` for one top-MB (``_merge_cands``).
+    Returns (tids [n, MB] int32 in append order, n_best [n], tie_ov [n])."""
     n_best, topv, tids = None, [], []
     for sc, fi, w0, inc in shards:
         d = sc.device
@@ -643,12 +692,21 @@ def _ties(shards, rows, best, p: ScanParams, t_pad, proxi_frac, dev):
         n_best = nb if n_best is None else n_best + nb
         topv.append(tv.to(dev))
         tids.append(ti.to(dev))
-    if len(shards) > 1:
-        topv, order = torch.topk(torch.cat(topv, dim=1), MB, dim=-1,
-                                 largest=True, sorted=True)
-        tids = torch.gather(torch.cat(tids, dim=1), 1, order)
-    else:
-        topv, tids = topv[0], tids[0]
+    if len(shards) == 1:
+        return _merge_cands(n_best, topv[0], tids[0], p, t_pad, 1)
+    return _merge_cands(n_best, torch.cat(topv, dim=1),
+                        torch.cat(tids, dim=1), p, t_pad, len(shards))
+
+
+def _merge_cands(n_best, topv, tids, p: ScanParams, t_pad, n_shards: int):
+    """The shards' candidates (their top-k negated keys and template ids
+    side by side in shard order, [n, n_shards * k] int64) merged into one
+    top-MB in append order: (tids [n, MB] int32, n_best, tie_ov [n])."""
+    MB = min(p.best_cap, t_pad)
+    if n_shards > 1:
+        topv, order = torch.topk(topv, MB, dim=-1, largest=True,
+                                 sorted=True)
+        tids = torch.gather(tids, 1, order)
     cand_ok = topv > -BIG
     if _fused(p, t_pad):
         tids = torch.where(cand_ok, tids, 0)
@@ -723,21 +781,21 @@ def _meta(score, mode, ov, n_out):
                          ).to(torch.int32)], dim=-1)
 
 
-def _merged_epilogue(shards, run_ov, p: ScanParams, t_pad, B, flat_cap,
-                     small_ids, proxi_frac=None):
-    """Single-strand-choice epilogue (savekmers.c:2766-2833): the tie
-    top-k runs on the chosen strand's rows only; equal-best reads (mode
-    3) come back flagged overflow for the dual-strand tier-1 rescan."""
-    dev = run_ov.device
-    shards = _clip_score(shards)
-    bestScore = _global_best(shards, dev)
+def _choose(bestScore, B: int, k: int):
+    """The single-strand choice of tier 0 (savekmers.c:2766-2833) from
+    the strand rows' global best: (mode, the signed score, the chosen
+    strand's rows [B] int64, their best)."""
     bf, br = bestScore[:B], bestScore[B:]
-    mode, out_score = _merge_mode(bf, br, p.k)
-    iota = torch.arange(B, dtype=torch.int64, device=dev)
+    mode, out_score = _merge_mode(bf, br, k)
+    iota = torch.arange(B, dtype=torch.int64, device=bestScore.device)
     rs = torch.where(mode == 2, iota + B, iota)
-    chosen_best = torch.where(mode == 2, br, bf)
-    tids, n_best, tie_ov = _ties(shards, rs, chosen_best, p, t_pad,
-                                 proxi_frac, dev)
+    return mode, out_score, rs, torch.where(mode == 2, br, bf)
+
+
+def _merged_pack(tids, n_best, tie_ov, run_ov, mode, out_score, B: int,
+                 p: ScanParams, t_pad, flat_cap, small_ids):
+    """Pack the chosen strand's ties: equal-best reads (mode 3) come back
+    flagged overflow for the dual-strand tier-1 rescan."""
     MB = min(p.best_cap, t_pad)
     ov = (run_ov[:B] | run_ov[B:] | (mode == 3)
           | torch.where(mode == 0, False, tie_ov))
@@ -747,6 +805,20 @@ def _merged_epilogue(shards, run_ov, p: ScanParams, t_pad, B, flat_cap,
     dt = torch.int16 if small_ids else torch.int32
     flat = torch.where(x < total, ids, 0).to(dt)
     return _meta(out_score, mode, ov, n_out), flat
+
+
+def _merged_epilogue(shards, run_ov, p: ScanParams, t_pad, B, flat_cap,
+                     small_ids, proxi_frac=None):
+    """Single-strand-choice epilogue (savekmers.c:2766-2833): the tie
+    top-k runs on the chosen strand's rows only."""
+    dev = run_ov.device
+    shards = _clip_score(shards)
+    mode, out_score, rs, chosen_best = _choose(_global_best(shards, dev), B,
+                                               p.k)
+    tids, n_best, tie_ov = _ties(shards, rs, chosen_best, p, t_pad,
+                                 proxi_frac, dev)
+    return _merged_pack(tids, n_best, tie_ov, run_ov, mode, out_score, B, p,
+                        t_pad, flat_cap, small_ids)
 
 
 def _emit_pack(bestScore, tids, n_best, run_ov, tie_ov, B, k, flat_cap,
@@ -785,6 +857,20 @@ def _emit_pack(bestScore, tids, n_best, run_ov, tie_ov, B, k, flat_cap,
     return _meta(score, mode, ov, n_out), flat
 
 
+def _strands(codes, lengths):
+    """Both strands of a forward batch codes [B, L]: (codes [2B, L], the
+    lengths and window starts [2B] int64, reverse-complement rows [2B]
+    bool).  The reverse complement is flipped and right-aligned in the
+    padded buffer; ``starts`` bounds its windows."""
+    B, L = codes.shape
+    rc = torch.flip(torch.where(codes < 4, 3 - codes, codes), dims=[-1])
+    lengths = lengths.to(torch.int64)
+    return (torch.cat([codes, rc], dim=0),
+            torch.cat([lengths, torch.full_like(lengths, L)]),
+            torch.cat([torch.zeros_like(lengths), L - lengths]),
+            torch.arange(2 * B, device=codes.device) >= B)
+
+
 def dense_scan_device(codes, lengths, didx: DenseIndex, *, sparams,
                       flat_cap: int, small_ids: bool, proxi_frac=None,
                       merged: bool = False):
@@ -795,14 +881,9 @@ def dense_scan_device(codes, lengths, didx: DenseIndex, *, sparams,
     positions.  merged=True takes the single-strand-choice epilogue.
     Returns (meta [B, 2] int32, flat [flat_cap] int16|int32)."""
     p = ScanParams(*sparams)
-    B, L = codes.shape
+    B = codes.shape[0]
     dev = codes.device
-    rc = torch.flip(torch.where(codes < 4, 3 - codes, codes), dims=[-1])
-    codes2 = torch.cat([codes, rc], dim=0)
-    lengths = lengths.to(torch.int64)
-    lens2 = torch.cat([lengths, torch.full_like(lengths, L)])
-    starts2 = torch.cat([torch.zeros_like(lengths), L - lengths])
-    rc_rows = torch.arange(2 * B, device=dev) >= B
+    codes2, lens2, starts2, rc_rows = _strands(codes, lengths)
     shards, run_ov = _run_state(codes2, lens2, didx, p, rc_rows, starts2)
     if merged:
         return _merged_epilogue(shards, run_ov, p, didx.t_pad, B, flat_cap,
@@ -832,14 +913,21 @@ def graph_key(didx: DenseIndex, shape, statics: dict) -> GraphKey:
     JAX jit of ``dense_scan_device`` (kma_tpu/mapping/scan_dense.py:
     565-568: sparams, B, flat_cap, small_ids, the image's mega, size,
     max_probe, t_pad and n_lists, proxi_frac, merged; its pallas_mode
-    has no counterpart), L, which jit reads from the shape, and the
-    device."""
+    has no counterpart), L, which jit reads from the shape, and where
+    the step runs: the device, or on a sharded image the layout the JAX
+    mesh fixes (:151-162), each shard's device and membership words
+    [w0, w1) (shard 0's device the primary)."""
     B, L = shape
+    where = str(didx.device)
+    if didx.sharded:
+        w = [t.shape[1] for t in didx.shard_bits]
+        where = tuple((str(dev), s * ws, (s + 1) * ws)
+                      for s, (dev, ws) in enumerate(zip(didx.devices, w)))
     return GraphKey(statics["sparams"], int(B), statics["flat_cap"],
                     statics["small_ids"], didx.mega, didx.size,
                     didx.max_probe, didx.t_pad, didx.n_lists,
                     statics["proxi_frac"], statics["merged"], int(L),
-                    str(didx.device))
+                    where)
 
 
 @dataclasses.dataclass
@@ -849,124 +937,456 @@ class _Graph:
     lengths: torch.Tensor          # lengths [B] int32
     out: Tuple[torch.Tensor, ...]  # static outputs: meta, flat
     launches: Tuple[int, ...]      # launches it holds, by ``kernels``
+    kernels: Tuple[Callable, ...] = ()
+
+    def replay(self, codes, lengths):
+        self.codes.copy_(codes)
+        self.lengths.copy_(lengths)
+        self.graph.replay()
+        # a replay runs the kernel launches its graph holds
+        _add(self.kernels, self.launches)
+        return tuple(t.clone() for t in self.out)
+
+
+def _add(kernels, launches, calls=None, shard=None) -> None:
+    """Add ``launches`` (by kernel; with ``calls``, the last is shard
+    ``shard``'s run-scoring calls) to the wrappers' counts."""
+    for k, n in zip(kernels, launches):
+        k.launches += n
+    if calls is not None:
+        calls[shard] += launches[-1]
+
+
+def _pool_key(dev) -> str:
+    """A card's key in ``StepGraphs.pools``: ``cuda:<index>`` whether the
+    device names its index or not."""
+    dev = torch.device(dev)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return str(dev)
+
+
+def _capture_counted(capture, fn, args, pool, kernels, calls=None,
+                     shard=None):
+    """``capture(fn, args, pool)`` with the counts ``fn`` bumps in
+    Python (the wrappers' ``launches``; with ``calls``, ``calls[shard]``,
+    a shard's run-scoring calls): the warm-up calls' stay, the capture
+    pass's are taken back, since it launched nothing.  Returns (graph,
+    outputs, the counts one replay adds)."""
+    def read():
+        return tuple(k.launches for k in kernels) + (
+            () if calls is None else (calls[shard],))
+
+    held = []
+
+    def counted(*a):
+        n0 = read()
+        out = fn(*a)
+        held.append(tuple(n - m for n, m in zip(read(), n0)))
+        return out
+
+    graph, out = capture(counted, args, pool=pool)
+    _add(kernels, tuple(-n for n in held[-1]), calls, shard)
+    return graph, out, held[-1]
+
+
+class _Arena:
+    """Buffers that the graphs of every key share on a device, by name:
+    the sharded plans' segment inputs and outputs and the batch's
+    codes, which a batch's own segments consume before the next batch's
+    run (replays run one at a time, each device's in order).  A key that
+    needs more than a buffer holds takes a larger one; the keys captured
+    before keep theirs."""
+
+    def __init__(self):
+        self.bufs: Dict[tuple, torch.Tensor] = {}
+
+    def take(self, name: str, shape, dtype, device) -> torch.Tensor:
+        n = math.prod(shape)
+        k = (name, str(device), dtype)
+        b = self.bufs.get(k)
+        if b is None or b.numel() < n:
+            b = self.bufs[k] = torch.empty(n, dtype=dtype, device=device)
+        return b[:n].view(shape)
+
+    def nbytes(self) -> int:
+        return sum(b.nbytes for b in self.bufs.values())
+
+
+def _unpack_runs(runs, G: int, R: int):
+    """(run_row, run_start, run_end, run_score [G, R], n_runs, rc_rows
+    [G]) int32 views of a packed run buffer (``_plan_sizes``)."""
+    GR = G * R
+    rows = [runs[i * GR: (i + 1) * GR].view(G, R) for i in range(4)]
+    return rows + [runs[4 * GR: 4 * GR + G], runs[4 * GR + G:]]
+
+
+def _plan_sizes(B: int, R: int, n_db: int, kk: int, merged: bool):
+    """Elements of a sharded plan's buffers at B reads, run cap R, n_db
+    shards and kk candidates a shard's row: runs (4 [G, R] arrays, n_runs
+    and rc_rows), the candidates a shard (n rows of n_best, kk keys, kk
+    ids), n and G; the selection (merged: the chosen rows and their best;
+    else the best of every strand row) and the row maxima take G."""
+    G = 2 * B
+    n = B if merged else G
+    return dict(runs=4 * G * R + 2 * G, cands=n * (2 * kk + 1), n=n, G=G)
+
+
+class ShardedStep:
+    """``dense_scan_device`` on a sharded image as five segments, each a
+    pure function of tensors on one device, split where the eager step's
+    data crosses devices:
+
+    1. the primary: both strands and the front half into a packed run
+       buffer and ``run_ov``;
+    2. each shard: ``run_score_rows`` on its columns, the clip, its row
+       maxima (shard ``s``'s score, first and mask stay on its device);
+    3. the primary: the global best of the maxima (tier 0: the strand
+       choice, its rows and their best);
+    4. each shard: its ties against that best and its local top-k;
+    5. the primary: the top-MB merge and the pack.
+
+    ``StepGraphs`` captures each segment into a graph on its own device
+    (``capture``) and replays them in this order, with ``copy_`` into the
+    next segment's inputs between (a cross-device ``copy_`` orders itself
+    with CUDA events against both devices' current streams, and syncs no
+    host).  Shard 0 sits on the primary and reads and writes the
+    primary's buffers; every other shard takes copies, on one card as on
+    four.  The inputs and outputs live in ``_Arena`` buffers: a key holds
+    no tensor of its own."""
+
+    def __init__(self, didx: DenseIndex, B: int, L: int, statics: dict):
+        self.d, self.B, self.L = didx, B, L
+        self.p = p = ScanParams(*statics["sparams"])
+        self.flat_cap = statics["flat_cap"]
+        self.small_ids = statics["small_ids"]
+        self.proxi_frac = statics["proxi_frac"]
+        self.merged = statics["merged"]
+        self.R = p.run_cap
+        self.kk = min(p.best_cap, didx.t_pad, didx.shard_bits[0].shape[1]
+                      * 32)
+        self.sz = _plan_sizes(B, self.R, len(didx.devices), self.kk,
+                              self.merged)
+
+    # -- the segments (pure functions of their tensors) ---------------------
+
+    def front(self, codes, lengths, exist, kv, runs, run_ov):
+        img = dataclasses.replace(self.d, exist=exist, kv=kv)
+        codes2, lens2, starts2, rc_rows = _strands(codes, lengths)
+        f = _strand_runs(codes2, lens2, img, self.p, starts2)
+        torch.cat([f[k].reshape(-1) for k in (
+            "run_row", "run_start", "run_end", "run_score", "n_runs")]
+            + [rc_rows.to(torch.int32)], out=runs)
+        run_ov.copy_(f["run_ov"])
+        return runs, run_ov
+
+    def score(self, s: int, runs, tab, rowmax):
+        G = self.sz["G"]
+        run_row, rstart, rend, rscore, n_runs, rc_i = _unpack_runs(
+            runs, G, self.R)
+        sc, fi = run_score_rows(tab, run_row, rstart, rend, rscore, n_runs,
+                                rc_i, p=self.p)
+        self.d.shard_calls[s] += 1
+        (sc, fi, _, inc), = _clip_score([(sc, fi, 0)])
+        torch.amax(sc, dim=-1, out=rowmax)
+        return sc, fi, inc
+
+    def best(self, maxima, sel, modes):
+        best = maxima.amax(dim=0)
+        if not self.merged:
+            sel.copy_(best)
+            return (sel,)
+        B = self.B
+        mode, out_score, rs, chosen = _choose(best, B, self.p.k)
+        sel[:B].copy_(rs)
+        sel[B:].copy_(chosen)
+        modes[0].copy_(mode)
+        modes[1].copy_(out_score)
+        return sel, modes
+
+    def ties(self, s: int, sc, fi, inc, sel, cands):
+        if self.merged:
+            B = self.B
+            r = sel[:B].long()
+            sc, fi, inc, best = sc[r], fi[r], None, sel[B:]
+        else:
+            best = sel
+        nb, tv, ti = _shard_ties(sc, fi, inc, best, self.p, self.d.t_pad,
+                                 s * self.d.shard_bits[s].shape[1],
+                                 self.proxi_frac)
+        kk = self.kk
+        cands[:, 0].copy_(nb)
+        cands[:, 1: kk + 1].copy_(tv)
+        cands[:, kk + 1:].copy_(ti)
+        return (cands,)
+
+    def pack(self, cands, run_ov, sel, modes, meta, flat):
+        n_db, n, kk = cands.shape[0], self.sz["n"], self.kk
+        c = cands.long()
+        n_best = c[:, :, 0].sum(dim=0)
+        topv = c[:, :, 1: kk + 1].transpose(0, 1).reshape(n, n_db * kk)
+        tids = c[:, :, kk + 1:].transpose(0, 1).reshape(n, n_db * kk)
+        t_pad, p = self.d.t_pad, self.p
+        tids, n_best, tie_ov = _merge_cands(n_best, topv, tids, p, t_pad,
+                                            n_db)
+        if self.merged:
+            m, f = _merged_pack(tids, n_best, tie_ov, run_ov, modes[0],
+                                modes[1], self.B, p, t_pad, self.flat_cap,
+                                self.small_ids)
+        else:
+            m, f = _emit_pack(sel, tids, n_best, run_ov, tie_ov, self.B,
+                              p.k, self.flat_cap, self.small_ids)
+        meta.copy_(m)
+        flat.copy_(f)
+        return meta, flat
+
+    # -- capture -------------------------------------------------------------
+
+    def capture(self, capture, pools, arena: _Arena, kernels, codes,
+                lengths) -> "_Plan":
+        """Every segment captured in plan order (``capture``, each into
+        its device's pool in ``pools``), the copies between them made
+        once; the shards' score, first and mask are let go at the end
+        (their blocks return to their pool, which another key's capture
+        may reuse: a batch's own segments read them before the next
+        batch's run)."""
+        d, sz, B = self.d, self.sz, self.B
+        prim, devs, n_db = d.device, d.devices, len(d.devices)
+        i32 = torch.int32
+
+        def take(name, shape, dtype=i32, dev=prim):
+            return arena.take(name, shape, dtype, dev)
+
+        def cap(fn, args, dev, s=None):
+            """(graph, counts a replay adds), and the outputs apart: a
+            segment's graph keeps none of its own."""
+            g, out, n = _capture_counted(capture, fn, args,
+                                         pools.get(_pool_key(dev)), kernels,
+                                         None if s is None
+                                         else d.shard_calls, s)
+            return (g, n), out
+
+        P = _Plan(self, kernels)
+        P.codes = take("codes", tuple(codes.shape), torch.uint8)
+        P.lengths = take("lengths", (B,))
+        P.codes.copy_(codes)
+        P.lengths.copy_(lengths)
+        P.runs = take("runs", (sz["runs"],))
+        P.run_ov = take("run_ov", (sz["G"],), torch.bool)
+        P.maxima = take("maxima", (n_db, sz["G"]))
+        P.sel = take("sel", (sz["G"],))
+        P.modes = take("modes", (2, B), torch.int64)
+        P.cands = take("cands", (n_db, sz["n"], 2 * self.kk + 1))
+        dt = torch.int16 if self.small_ids else torch.int32
+        P.meta = take("meta", (B, 2))
+        P.flat = take("flat", (self.flat_cap,), dt)
+        P.g_front, _ = cap(self.front, (P.codes, P.lengths, d.exist, d.kv,
+                                        P.runs, P.run_ov), prim)
+        held = []
+        for s, (dev, tab) in enumerate(zip(devs, d.shard_bits)):
+            # shard 0 is on the primary: it reads and writes the
+            # primary's buffers; the others take copies
+            sh = _PlanShard(
+                runs=P.runs if s == 0 else take("runs%d" % s,
+                                                (sz["runs"],), dev=dev),
+                rowmax=P.maxima[s] if s == 0 else take(
+                    "rowmax%d" % s, (sz["G"],), dev=dev),
+                sel=P.sel if s == 0 else take("sel%d" % s, tuple(
+                    P.sel.shape), dev=dev),
+                cands=P.cands[s] if s == 0 else take(
+                    "cands%d" % s, tuple(P.cands.shape[1:]), dev=dev))
+            sh.copy_in(P.runs, sh.runs)
+            sh.g_score, out = cap(functools.partial(self.score, s),
+                                  (sh.runs, tab, sh.rowmax), dev, s)
+            held.append(out)
+            sh.copy_in(sh.rowmax, P.maxima[s])
+            P.shards.append(sh)
+        P.g_best, _ = cap(self.best, (P.maxima, P.sel, P.modes), prim)
+        for s, (sh, (sc, fi, inc)) in enumerate(zip(P.shards, held)):
+            sh.copy_in(P.sel, sh.sel)
+            sh.g_ties, _ = cap(functools.partial(self.ties, s),
+                               (sc, fi, inc, sh.sel, sh.cands), devs[s])
+            sh.copy_in(sh.cands, P.cands[s])
+        P.g_pack, _ = cap(self.pack, (P.cands, P.run_ov, P.sel, P.modes,
+                                      P.meta, P.flat), prim)
+        return P
+
+
+@dataclasses.dataclass
+class _PlanShard:
+    """One shard's buffers in a captured plan, and its segments' (graph,
+    counts a replay adds)."""
+
+    runs: torch.Tensor
+    rowmax: torch.Tensor
+    sel: torch.Tensor
+    cands: torch.Tensor
+    g_score: tuple = None
+    g_ties: tuple = None
+
+    @staticmethod
+    def copy_in(src, dst):
+        if dst is not src:
+            dst.copy_(src)
+
+
+class _Plan:
+    """A sharded step captured for one key: ``replay`` copies a batch in,
+    replays the five segments in order with the copies between, and
+    copies meta and flat out."""
+
+    def __init__(self, step: ShardedStep, kernels):
+        self.step, self.kernels = step, kernels
+        self.shards: List[_PlanShard] = []
+
+    def replay(self, codes, lengths):
+        calls, kernels = self.step.d.shard_calls, self.kernels
+        self.codes.copy_(codes)
+        self.lengths.copy_(lengths)
+        self.g_front[0].replay()
+        for s, sh in enumerate(self.shards):
+            sh.copy_in(self.runs, sh.runs)
+            sh.g_score[0].replay()
+            _add(kernels, sh.g_score[1], calls, s)
+            sh.copy_in(sh.rowmax, self.maxima[s])
+        self.g_best[0].replay()
+        for s, sh in enumerate(self.shards):
+            sh.copy_in(self.sel, sh.sel)
+            sh.g_ties[0].replay()
+            sh.copy_in(sh.cands, self.cands[s])
+        self.g_pack[0].replay()
+        return self.meta.clone(), self.flat.clone()
 
 
 class StepGraphs:
     """The port's counterpart of the ``jax.jit`` cache of a scan step
-    (the JAX ``dense_scan_device`` or ``fast_scan_device``): one CUDA
-    graph of the step a key of static arguments (``graph_key``,
-    ``scan_fast.fast_key``).  The first batch of a key captures it
+    (the JAX ``dense_scan_device`` or ``fast_scan_device``, the chain
+    op's ``_chain_lookup``): one CUDA graph of the step a key of static
+    arguments (``graph_key``, ``scan_fast.fast_key``,
+    ``chain_device.chain_key``).  The first batch of a key captures it
     (``entry.capture``: WARMUP eager calls, then the capture); every
     batch, that one too, copies its codes and lengths into the graph's
-    static inputs, replays the graph, and copies its meta and flat out
-    on the card at once, since the next replay of the key overwrites
-    them (the scanner queues every batch of a request before the first
-    sync, and the daemon dispatches request k+1 before it resolves
-    request k).
+    static inputs, replays the graph, and copies its outputs out on the
+    card at once, since the next replay of the key overwrites them (the
+    scanner queues every batch of a request before the first sync, and
+    the daemon dispatches request k+1 before it resolves request k).
 
     An image on a CUDA card holds one, which the scanners of every
-    penalty set share: an unsharded dense image (its step reads the
-    image's ``exist``, ``kv`` and ``bits``) and the pair-stream image
-    (``exist``, ``kv`` and ``values``; ``device_index.step_graphs``).
-    ``tensors`` names what the step reads of the image: the graphs hold
-    their addresses and live no longer than it.  A sharded image has
-    none (one graph spans one device) and runs eager, as does the
-    ``chain`` op.
+    penalty set share: a dense image (its step reads the image's
+    ``exist``, ``kv`` and ``bits``), the pair-stream image (``exist``,
+    ``kv`` and ``values``; ``device_index.step_graphs``) and a dense
+    image's chain op (``exist``, ``kv``; ``chain_device.chain_graphs``,
+    sharing the dense graphs' pools).  ``tensors`` names what the step
+    reads of the image: the graphs hold their addresses and live no
+    longer than it.  A sharded image's step is a ``ShardedStep``: one
+    graph a segment on the segment's device, captured, counted, replayed
+    and evicted together as one key.
 
-    Pool: the graphs share one memory pool (``graph_pool_handle``), so
-    they hold one batch's intermediates at the largest key, not one
-    each.  PyTorch calls a shared pool safe when its graphs replay in
-    the order of their captures; here they replay in any order, which is
-    safe because (1) replays run one at a time on one stream (the
-    daemon's device work is serialised under its op lock), so no two
-    graphs' intermediates are live at once, and (2) a graph's outputs are
-    read only through the copies taken right after its own replay, so
-    another graph whose intermediates reuse blocks freed in an earlier
+    Pool: the graphs of a device share one memory pool
+    (``graph_pool_handle``; ``pools`` by device), so they hold one
+    batch's intermediates at the largest key, not one each.  PyTorch
+    calls a shared pool safe when its graphs replay in the order of
+    their captures; here they replay in any order, which is safe because
+    (1) replays run one at a time on one stream a device (the daemon's
+    device work is serialised under its op lock, the chain op's too),
+    so no two keys' intermediates are live at once, and (2) a graph's
+    outputs are read only by the copies taken right after its own replay
+    (a sharded key's, by its next segments, before the next batch's),
+    so another graph whose intermediates reuse blocks freed in an earlier
     capture cannot clobber an output anyone reads.  The static inputs
-    and the copies are allocated outside the pool.  At MAX_GRAPHS graphs
-    the least recently replayed is dropped (``evictions`` counts them).
+    and the copies are allocated outside the pools.  At ``max_graphs``
+    keys the least recently replayed is dropped (``evictions`` counts
+    them).
 
     A capture that fails raises, and the caller's op faults: nothing runs
     eager in its place.  ``captures`` and ``replays`` count by key;
     ``capture_s`` holds each key's last capture time (host clock, the
     warm-up calls included).  ``kernels`` are the hand-written kernels'
     wrappers the step may launch (the dense step's ``run_score_rows``;
-    none for the pair-stream step): the capture pass runs no launch, so
-    a replay adds its graph's launches to each wrapper's count.
-    ``capture`` replaces ``entry.capture`` (the CPU tests' stand-in)."""
+    none for the pair-stream and chain steps): the capture pass runs no
+    launch, so a replay adds its graph's launches to each wrapper's
+    count (and a sharded replay its shards' run-scoring calls to
+    ``shard_calls``).  ``capture`` replaces ``entry.capture`` (the CPU
+    tests' stand-in)."""
 
     def __init__(self, capture: Optional[Callable] = None,
                  tensors: Sequence[str] = ("exist", "kv", "bits"),
-                 kernels: Sequence[Callable] = (run_score_rows,)):
+                 kernels: Sequence[Callable] = (run_score_rows,),
+                 pools: Optional[dict] = None,
+                 max_graphs: Optional[int] = None):
         self._capture = capture
         self.tensors = tuple(tensors)
         self.kernels = tuple(kernels)
-        self.graphs: "collections.OrderedDict[tuple, _Graph]" = \
+        self.graphs: "collections.OrderedDict[tuple, object]" = \
             collections.OrderedDict()
         self.captures: collections.Counter = collections.Counter()
         self.replays: collections.Counter = collections.Counter()
         self.capture_s: Dict[tuple, float] = {}
         self.evictions = 0
-        self.pool = None
+        #: each card's pool handle, by ``_pool_key``; shareable
+        self.pools = {} if pools is None else pools
+        self.max_graphs = max_graphs
+        self.arena = _Arena()
 
-    def run(self, key: tuple, step: Callable, codes: torch.Tensor,
+    @property
+    def pool(self):
+        """The first device's pool handle (None before a capture on a
+        card)."""
+        return next(iter(self.pools.values()), None)
+
+    def run(self, key: tuple, step, codes: torch.Tensor,
             lengths: torch.Tensor, image):
-        """(meta, flat) of ``step`` (a pure function of codes, lengths
+        """The outputs of ``step`` (a pure function of codes, lengths
         and the image's ``tensors``: ``DenseScanner.step``,
-        ``FastScanner.step``) on this batch, replayed from the key's
-        graph."""
+        ``FastScanner.step``, ``chain_device.chain_step``; or a
+        ``ShardedStep``) on this batch, replayed from the key's graphs."""
         g = self.graphs.get(key)
         if g is None:
             g = self._capture_key(key, step, codes, lengths, image)
         self.graphs.move_to_end(key)
-        g.codes.copy_(codes)
-        g.lengths.copy_(lengths)
-        g.graph.replay()
+        out = g.replay(codes, lengths)
         self.replays[key] += 1
-        # a replay runs the kernel launches its graph holds
-        for k, n in zip(self.kernels, g.launches):
-            k.launches += n
-        return tuple(t.clone() for t in g.out)
+        return out
 
-    def _capture_key(self, key, step, codes, lengths, image) -> _Graph:
+    def _capture_key(self, key, step, codes, lengths, image):
         capture = self._capture
         if capture is None:
             from ..entry import capture  # entry.py imports this module
-        if self.pool is None and codes.device.type == "cuda":
-            self.pool = torch.cuda.graph_pool_handle()
-        while len(self.graphs) >= MAX_GRAPHS:
+        devs = getattr(image, "devices", None) or (codes.device,)
+        for dev in devs:
+            if dev.type == "cuda" and _pool_key(dev) not in self.pools:
+                with torch.cuda.device(dev):
+                    self.pools[_pool_key(dev)] = \
+                        torch.cuda.graph_pool_handle()
+        cap = MAX_GRAPHS if self.max_graphs is None else self.max_graphs
+        while len(self.graphs) >= cap:
             self.graphs.popitem(last=False)
             self.evictions += 1
-        held = []
-
-        def counted(*args):
-            n0 = [k.launches for k in self.kernels]
-            out = step(*args)
-            held.append(tuple(k.launches - n
-                              for k, n in zip(self.kernels, n0)))
-            return out
-
-        args = (codes.clone(), lengths.clone(),
-                *(getattr(image, t) for t in self.tensors))
         t0 = time.perf_counter()
-        graph, out = capture(counted, args, pool=self.pool)
+        if isinstance(step, ShardedStep):
+            g = step.capture(capture, self.pools, self.arena, self.kernels,
+                             codes, lengths)
+        else:
+            args = (codes.clone(), lengths.clone(),
+                    *(getattr(image, t) for t in self.tensors))
+            graph, out, launches = _capture_counted(
+                capture, step, args,
+                self.pools.get(_pool_key(codes.device)), self.kernels)
+            g = _Graph(graph, args[0], args[1], tuple(out), launches,
+                       self.kernels)
         self.capture_s[key] = time.perf_counter() - t0
-        # the capture pass recorded its launches; the replays run them
-        for k, n in zip(self.kernels, held[-1]):
-            k.launches -= n
-        g = _Graph(graph, args[0], args[1], tuple(out), held[-1])
         self.graphs[key] = g
         self.captures[key] += 1
         return g
 
     def pool_bytes(self) -> int:
-        """Bytes the graphs' pool holds on the card (the segments
-        ``torch.cuda.memory_snapshot`` gives the pool)."""
-        if self.pool is None:
+        """Bytes the graphs' pools hold on the cards (the segments
+        ``torch.cuda.memory_snapshot`` gives the pools)."""
+        if not self.pools:
             return 0
-        pid = tuple(self.pool)
+        pids = {tuple(p) for p in self.pools.values()}
         return sum(s["total_size"] for s in torch.cuda.memory_snapshot()
-                   if tuple(s.get("segment_pool_id", ())) == pid)
+                   if tuple(s.get("segment_pool_id", ())) in pids)
 
 
 class DenseScanner:
@@ -1045,17 +1465,25 @@ class DenseScanner:
 
         return fn
 
+    def sharded_step(self, B: int, L: int, tier: int,
+                     flat_cap: int) -> ShardedStep:
+        """``dense_scan_device`` of a [B, L] batch at ``tier`` on the
+        sharded image as its five segments: what its step graphs
+        capture."""
+        return ShardedStep(self.didx, B, L, self._statics(L, tier, flat_cap))
+
     def _call(self, codes_t, lens_t, tier: int, flat_cap: int):
         """One batch: replayed from the image's step graphs when it has
-        them, else eager."""
-        L = codes_t.shape[1]
+        them (a sharded image's as a ``ShardedStep``), else eager."""
+        B, L = codes_t.shape
         statics = self._statics(L, tier, flat_cap)
-        graphs = self.didx.graphs
+        d, graphs = self.didx, self.didx.graphs
         if graphs is None:
-            return dense_scan_device(codes_t, lens_t, self.didx, **statics)
-        return graphs.run(graph_key(self.didx, codes_t.shape, statics),
-                          self.step(L, tier, flat_cap), codes_t, lens_t,
-                          self.didx)
+            return dense_scan_device(codes_t, lens_t, d, **statics)
+        step = self.sharded_step(B, L, tier, flat_cap) if d.sharded \
+            else self.step(L, tier, flat_cap)
+        return graphs.run(graph_key(d, codes_t.shape, statics), step,
+                          codes_t, lens_t, d)
 
     def scan_reads(self, codes: np.ndarray, lengths: np.ndarray):
         """Returns (scores i32 [N], modes u8 [N], tid_lists: list of

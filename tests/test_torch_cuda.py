@@ -650,3 +650,132 @@ def test_pair_stream_failed_capture_faults_the_dense_op(cuda, tmp_path,
     th.join(timeout=30)
     assert srv.faults == {"dense": 1}
     assert not srv.graphs.graphs and not srv.graphs.replays
+
+
+# -- the sharded dense step's graphs (scan_dense.ShardedStep) ----------------
+
+def _sharded_scanner(dev, seed=31, **kw):
+    """A DenseScanner (batch 256) on the 120 panel templates sharded over
+    every card (two entries of the one card on a one-card machine) under
+    a budget one card's footprint exceeds, which replays its segments'
+    graphs; the same scanner unsharded on the CPU."""
+    from kma_tpu_torch.config import Penalties
+    from kma_tpu_torch.mapping import scan_dense as tsd
+    from kma_tpu_torch.parallel.multichip import SEED, _panel, \
+        synthetic_index
+    seqs = _panel(np.random.default_rng(SEED), 120)
+    idx = synthetic_index(seqs)
+    n_cards = torch.cuda.device_count()
+    devs = ["cuda:%d" % (i % n_cards) for i in range(max(2, n_cards))]
+    budget = max(f.total for f in tsd.image_footprint(idx, len(devs), 256))
+    assert budget < tsd.image_footprint(idx, 1, 256)[0].total
+    sc = tsd.DenseScanner(idx, Penalties(), batch=256, devices=devs,
+                          mem_budget_bytes=budget, **kw)
+    assert sc.didx.sharded and isinstance(sc.didx.graphs, tsd.StepGraphs)
+    plain = tsd.DenseScanner(idx, Penalties(), batch=256, device="cpu",
+                             **kw)
+    return sc, plain, seqs, np.random.default_rng(seed)
+
+
+@pytest.mark.parametrize("kw", [{}, dict(proxi_frac=0.9)])
+def test_sharded_graphs_replay_as_eager(cuda, kw):
+    """Tier 0 and tier 1 at L 128 and 192, captured, then replayed in
+    other orders on new reads: every replay equals the eager sharded
+    step and the unsharded plain scanner on the CPU bit for bit; each
+    replay counts one run-scoring launch and call a shard."""
+    from kma_tpu_torch.mapping import scan_dense as tsd
+    from kma_tpu_torch.ops import scan_kernel as sk
+    sc, plain, seqs, rng = _sharded_scanner(cuda, **kw)
+    d, g = sc.didx, sc.didx.graphs
+    keys = [(0, 128), (1, 128), (0, 192), (1, 192)]
+    for tier, L in keys:
+        c, n, cap = _graph_batch(sc, rng, seqs, tier, L)
+        sc._call(c, n, tier, cap)
+    assert len(g.graphs) == 4 and g.pool is not None
+    n_db = len(d.devices)
+    mapped = 0
+    for tier, L in keys[::-1] + [keys[0], keys[3]]:
+        c, n, cap = _graph_batch(sc, rng, seqs, tier, L)
+        calls0, n0 = list(d.shard_calls), sk.run_score_rows.launches
+        got = sc._call(c, n, tier, cap)
+        torch.cuda.synchronize()
+        assert sk.run_score_rows.launches == n0 + n_db
+        assert d.shard_calls == [x + 1 for x in calls0]
+        eager = tsd.dense_scan_device(c, n, d, **sc._statics(L, tier, cap))
+        want = plain._call(c.cpu(), n.cpu(), tier, cap)
+        torch.cuda.synchronize()
+        for x, y, z in zip(got, eager, want):
+            assert x.dtype == z.dtype
+            assert torch.equal(x, y) and torch.equal(x.cpu(), z)
+        mapped += int(((got[0][:, 1] & 3) != 0).sum())
+    assert mapped > 0
+    assert sum(g.captures.values()) == 4
+    assert g.pool_bytes() > 0
+
+
+def test_sharded_requests_dispatched_before_either_resolves(cuda):
+    """Two 600-read requests on the sharded image dispatched before the
+    first resolves: each equals the plain scanner on the CPU."""
+    sc, plain, seqs, rng = _sharded_scanner(cuda, seed=32)
+    from kma_tpu_torch.parallel.multichip import _reads
+    reqs = [_reads(rng, seqs, 600, 128) for _ in range(2)]
+    handles = [sc.scan_dispatch(c, n) for c, n in reqs]
+    got = [sc.scan_resolve(h) for h in handles]
+    for (c, n), a in zip(reqs, got):
+        b = plain.scan_reads(c, n)
+        for x, y in zip(a[:2] + a[3:], b[:2] + b[3:]):
+            assert np.array_equal(x, y)
+        for x, y in zip(a[2], b[2]):
+            assert (x is None) == (y is None)
+            assert x is None or np.array_equal(x, y)
+        assert (a[1] != 0).sum() > 300
+    assert max(sc.didx.graphs.replays.values()) >= 6
+
+
+def test_failed_sharded_capture_keeps_no_key(cuda, monkeypatch):
+    """A segment that syncs the host cannot be captured: the batch raises
+    (the daemon's op faults) and the key keeps no graph."""
+    from kma_tpu_torch.mapping import scan_dense as tsd
+    sc, _, seqs, rng = _sharded_scanner(cuda, seed=33)
+    real = tsd.ShardedStep.best
+
+    def syncs(self, maxima, *a):
+        int(maxima.sum())        # a host sync: refused while capturing
+        return real(self, maxima, *a)
+
+    monkeypatch.setattr(tsd.ShardedStep, "best", syncs)
+    c, n, cap = _graph_batch(sc, rng, seqs, 0, 128)
+    with pytest.raises(RuntimeError):
+        sc._call(c, n, 0, cap)
+    assert not sc.didx.graphs.graphs and not sc.didx.graphs.replays
+
+
+# -- the chain op's graphs (chain_device.chain_graphs) ------------------------
+
+def test_chain_graphs_replay_as_eager(cuda):
+    """Requests of 2,048 and 16,384 rows and their short tails at L 128:
+    replayed from one graph a rows class, each reply equal to the eager
+    lookup on the card and to the lookup on the CPU."""
+    from kma_tpu_torch.mapping import chain_device as tcd
+    from kma_tpu_torch.mapping import scan_dense as tsd
+    from kma_tpu_torch.parallel.multichip import SEED, _panel, _reads, \
+        synthetic_index
+    seqs = _panel(np.random.default_rng(SEED), 120)
+    idx = synthetic_index(seqs)
+    d = tsd.DenseIndex.from_host(idx, cuda)
+    cpu = tsd.DenseIndex.from_host(idx, "cpu")
+    g = d.chain_graphs
+    assert g is not None and g.pools is d.graphs.pools
+    rng = np.random.default_rng(41)
+    for n in (2048, 700, 16384, 5000, 2048):
+        c, ln = _reads(rng, seqs, n, 128)
+        got = tcd.chain_lookup_dense(d, idx, c, ln)
+        eager = tcd.chain_lookup(d, torch.from_numpy(c).to(cuda),
+                                 torch.from_numpy(ln).to(cuda))
+        want = tcd.chain_lookup_dense(cpu, idx, c, ln)
+        for a, b, z in zip(got, eager, want):
+            assert np.array_equal(a, b.cpu().numpy())
+            assert np.array_equal(a, z)
+        assert (got[0] >= 0).sum() > 0
+    assert sorted(k[5] for k in g.graphs) == [2048, 16384]
+    assert sum(g.captures.values()) == 2 and sum(g.replays.values()) == 5

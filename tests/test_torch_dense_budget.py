@@ -225,11 +225,14 @@ def test_image_terms_are_its_tensors(family, n):
     for s, (f, b) in enumerate(zip(d.footprint, d.shard_bits)):
         assert f.bits == b.nbytes
         assert f.hash == (d.exist.nbytes + d.kv.nbytes if s == 0 else 0)
-        assert f.ops == (tsd.CHAIN_BYTES_A_WINDOW * tsd.CHAIN_WINDOWS
-                         if s == 0 else 0)
-        # the step graphs' inputs, outputs and copies: one device only
+        assert f.ops == ((tsd.CHAIN_BYTES_A_WINDOW + tsd.CHAIN_GRAPHS
+                          * tsd.CHAIN_GRAPH_BYTES_A_WINDOW)
+                         * tsd.CHAIN_WINDOWS if s == 0 else 0)
+        # the step graphs' inputs, outputs and copies; a sharded image's
+        # plans' buffers a shard
         assert f.graphs == (tsd.graph_bytes(64, d.t_pad, k=d.kmersize)
-                            if n == 1 else 0)
+                            if n == 1 else tsd.plan_bytes(
+                                64, d.t_pad, n, k=d.kmersize)[s])
         assert f.total == f.bits + f.hash + 2 * f.workspace + f.ops \
             + f.graphs
     ws = [sum(tsd.batch_workspace(

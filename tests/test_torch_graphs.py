@@ -290,14 +290,24 @@ def test_cpu_scanner_builds_no_graph(tiny):
     assert sc.didx.graphs is None
 
 
-@pytest.mark.parametrize("sharded,takes", [(False, True), (True, False)])
-def test_only_an_unsharded_card_image_takes_graphs(sharded, takes, tiny):
-    """The rule of DenseIndex: a CUDA image gets a StepGraphs unless it
-    is sharded (no CUDA call is made to decide)."""
+@pytest.mark.parametrize("device,sharded,takes", [
+    ("cuda", False, True), ("cuda", True, True), ("cpu", True, False)])
+def test_only_an_unsharded_card_image_takes_graphs(device, sharded, takes,
+                                                   tiny):
+    """The rule of DenseIndex: an image on CUDA cards gets a StepGraphs
+    and chain graphs, sharded or not (a sharded one replays its step as
+    a ``ShardedStep``); a CPU image none (no CUDA call is made to
+    decide)."""
     d = _scanner(tiny[0]).didx
-    img = dataclasses.replace(d, device=torch.device("cuda", 0),
-                              sharded=sharded, graphs=None)
+    img = dataclasses.replace(d, device=torch.device(device, 0)
+                              if device == "cuda" else d.device,
+                              sharded=sharded, graphs=None,
+                              chain_graphs=None)
     assert isinstance(img.graphs, tsd.StepGraphs) == takes
+    assert isinstance(img.chain_graphs, tsd.StepGraphs) == takes
+    if takes:
+        assert img.chain_graphs.pools is img.graphs.pools
+        assert img.chain_graphs.kernels == ()
 
 
 def test_launches_count_the_replays():
@@ -338,7 +348,8 @@ def test_footprint_counts_the_graphs(tiny):
     """The footprint's graph term covers MAX_GRAPHS graphs' static inputs
     and outputs at the read pad (measured on stand-in graphs of both
     tiers) and the output copies of IN_FLIGHT requests of REQUEST_READS
-    reads; a sharded image's shards count none."""
+    reads; a sharded image's shards count their plans' buffers
+    (``plan_bytes``, held in tests/test_torch_graphs_sharded.py)."""
     idx = tiny[0]
     B, L, k = 64, tsd.FOOTPRINT_READ_PAD, idx.kmersize
     sc = tsd.DenseScanner(idx, Penalties(), batch=B, device="cpu")
@@ -361,5 +372,7 @@ def test_footprint_counts_the_graphs(tiny):
     assert one.graphs == term
     assert one.total == one.bits + one.hash + tsd.IN_FLIGHT * one.workspace \
         + one.ops + term
-    assert all(f.graphs == 0 for f in tsd.dense_footprint(
-        100, 2 * sc.didx.t_pad, 4096, 2, B, k))
+    two = tsd.dense_footprint(100, 2 * sc.didx.t_pad, 4096, 2, B, k)
+    assert tuple(f.graphs for f in two) == tsd.plan_bytes(
+        B, 2 * sc.didx.t_pad, 2, L, k)
+    assert all(f.graphs > 0 for f in two)

@@ -324,21 +324,29 @@ def test_request_line_names_the_faults(faults, line):
         requests=Counter(dense=3, nw_qext=1, hello=2, dense_pipelined=3),
         device="cpu", faults=Counter(faults),
         first_fault=repr(RuntimeError(KERNEL_ERROR)) if faults else None,
-        graphs=None)
+        graphs=None, chain_graphs=None)
     assert launch.request_line(srv) == line
 
 
 def test_request_line_names_the_graphs():
     """A daemon whose dense op replays graphs names how many it captured
-    and how many batches it replayed, before its faults."""
+    and how many batches it replayed, then its chain op's the same,
+    before its faults."""
     from collections import Counter
     from types import SimpleNamespace
     graphs = SimpleNamespace(captures=Counter(a=1, b=1),
                              replays=Counter(a=30, b=10))
-    srv = SimpleNamespace(requests=Counter(dense=3), device="cuda:0",
-                          faults=Counter(), first_fault=None, graphs=graphs)
+    chain = SimpleNamespace(captures=Counter(c=1), replays=Counter(c=4))
+    srv = SimpleNamespace(requests=Counter(dense=3, chain=4),
+                          device="cuda:0", faults=Counter(),
+                          first_fault=None, graphs=graphs,
+                          chain_graphs=chain)
     assert launch.request_line(srv) == (
-        "dense 3, chain 0, nw_qext 0 requests on cuda:0, graphs 2 "
+        "dense 3, chain 4, nw_qext 0 requests on cuda:0, graphs 2 "
+        "(replays 40), chain graphs 1 (replays 4), faults 0")
+    srv.chain_graphs = None          # a pair-stream daemon's
+    assert launch.request_line(srv) == (
+        "dense 3, chain 4, nw_qext 0 requests on cuda:0, graphs 2 "
         "(replays 40), faults 0")
 
 
