@@ -46,7 +46,15 @@ non-zero):
     probes on the host, so a daemon would get no op; its wall is printed
     beside the same run's under ``-device on``, auto's route before) and
     ``-ipe -ex_mode``, which the native CLI hands to the Python pipeline,
-    must go to the card with chain requests, each byte-identical to
+    must go to the card with chain requests; the Python pipeline's PE
+    ``-hmm`` and PE ``-proxi 0.9`` on the 10,000 pairs must stay on the
+    host with no daemon (``cli.python_ops``: no op to send), each run
+    once more under ``-device on`` (auto's route before: its daemon must
+    get no request, its wall printed beside the host's), and SE
+    ``-proxi 0.9`` must go to the card, on the 100 bp reads (whose
+    daemon gets no request: its wall is printed beside ``-device
+    off``'s) and on the 500 bp reads (``KMA_TPU_DEVICE_AUTO_MB=0``) with
+    ``nw_qext`` requests; each byte-identical to
     ``-device off``; then KMA's default chain
     mode, whose window probes ride the daemon's
     ``chain`` op: the native CLI on the 20,000 reads without ``-1t1``,
@@ -78,7 +86,7 @@ non-zero):
     with no budget override the daemon must serve it with the unsharded
     dense scanner of one card (it prints V, t_pad, the footprint and its
     terms, the budget read from ``mem_get_info`` and the image build
-    time); 50,000 150 bp reads of one simulated isolate (one allele a
+    time); 20,000 150 bp reads of one simulated isolate (one allele a
     locus, ~1 % substitutions, both strands) are mapped with ``-1t1
     -device on`` through both CLIs (step graphs replayed; peak device
     memory, allocated and reserved with the graphs' pool, must stay
@@ -168,7 +176,7 @@ at parity.  A capture that fails faults its op, so it fails the smoke.
 Cut to fit half the 1,200 s limit (by depth only, every path still
 driven): phase (e)'s repeated runs (the native default mode, the
 pair-stream ``-1t1`` runs of both CLIs and the pair-stream native
-default mode) take the first 5,000 of the 50,000 cgMLST reads; the
+default mode) take the first 5,000 of the 20,000 cgMLST reads; the
 index builds of phases (e) and (f) run in the background from phase
 (c)'s launcher run on.  The summary prints each phase's seconds.
 
@@ -204,7 +212,7 @@ N_PAIRS = 10000
 SEED = 2024
 N_LOCI = 3002           # EnteroBase's Salmonella enterica cgMLST scheme
 N_ALLELES = 40
-N_CG_READS = 50000
+N_CG_READS = 20000
 N_CG_SUB_READS = 5000    # phase (e)'s default modes and repeated runs
 CG_READ_LEN = 150
 N_BIG_TEMPLATES = 18000  # phase (f): sharded under an explicit budget
@@ -2403,7 +2411,8 @@ def served_dense_flow(env, pe1, pe2, db, o, gpu, srv):
     return wall
 
 
-def auto_runs(env, reads, pe1, pe2, db, o, gpu, srv, native_ran):
+def auto_runs(env, reads, long_reads, pe1, pe2, db, o, gpu, srv,
+              native_ran):
     """(c) runs with no ``-device`` through ``python -m kma_tpu_torch``,
     which decides ``auto``: ``-1t1`` under ``KMA_TPU_DEVICE_AUTO_MB=1``
     (the reads are a few MB) goes to the card (decision line ``on``, its
@@ -2414,10 +2423,21 @@ def auto_runs(env, reads, pe1, pe2, db, o, gpu, srv, native_ran):
     with no daemon built (the card's chain budget would keep every chain
     probe of it on the host: its daemon would get no op) and ``-ipe
     -ex_mode``, which the native CLI hands to the Python pipeline, goes
-    to the card and sends chain requests.  Each output equals
-    ``-device off``'s and no run reaches the smoke's own daemon.
-    Returns {"<mode> <route>": (wall, run-scoring launches, chain
-    requests)}."""
+    to the card and sends chain requests.  The Python pipeline's PE
+    ``-hmm`` and PE ``-proxi 0.9`` on the pairs stay on the host with no
+    daemon built (``cli.python_ops`` finds no op: its unfused PE loop
+    has no client of the daemon), each run once more under ``-device on``,
+    auto's route before, whose daemon must get no request; SE ``-proxi
+    0.9`` goes to the card, on the 100 bp reads (its SE loop may send
+    ``nw_qext`` for a read over 256 bp: here its daemon gets none, and
+    its wall is printed beside ``-device off``'s) and on the 500 bp
+    reads (``KMA_TPU_DEVICE_AUTO_MB=0``: the file is under 1 MB), where
+    it must send ``nw_qext`` requests.  Each output equals ``-device
+    off``'s and no run reaches the smoke's own daemon.  Returns
+    ({"<mode> <route>": (wall, run-scoring launches, chain requests,
+    reads)}, {mode: (auto's host wall, the -device on wall, its
+    requests)}, {mode: (the -device off wall, auto's served wall, its
+    requests)})."""
     kma = [os.path.join(HERE, "bin", "kma")]
     runs = [("-1t1", ["-i", reads, "-1t1"], "1", "on", "py_host"),
             ("-1t1", ["-i", reads, "-1t1"], None, "host", "py_host")]
@@ -2426,16 +2446,24 @@ def auto_runs(env, reads, pe1, pe2, db, o, gpu, srv, native_ran):
                  ("-ipe -ex_mode", ["-ipe", pe1, pe2, "-ex_mode"], "1",
                   "on", None)]
     else:
-        say("native CLI absent: every run is the Python pipeline's, which "
-            "auto serves; the default mode's host route is not driven")
-    got = {}
+        say("native CLI absent: every run is the Python pipeline's; the "
+            "default mode's host route is not driven")
+    runs += [("-ipe -hmm", ["-ipe", pe1, pe2, "-hmm"], "1", "host", None),
+             ("-ipe -proxi 0.9", ["-ipe", pe1, pe2, "-proxi", "0.9"], "1",
+              "host", None),
+             ("-proxi 0.9", ["-i", reads, "-proxi", "0.9"], "1", "on",
+              None),
+             ("-proxi 0.9 500 bp", ["-i", long_reads, "-proxi", "0.9"], "0",
+              "on", None)]
+    got, before, served_idle = {}, {}, {}
     for mode, args, mb, route, host in runs:
         e = {k: v for k, v in env.items() if k != "KMA_TPU_DEVICE_AUTO_MB"}
         if mb is not None:
             e["KMA_TPU_DEVICE_AUTO_MB"] = mb
         what = ("python -m kma_tpu_torch %s (no -device; "
                 "KMA_TPU_DEVICE_AUTO_MB %s)" % (mode, mb or "unset"))
-        tag = "auto_%s_%s" % (mode.split()[0].strip("-"), route)
+        tag = "auto_%s_%s" % ("_".join(m.strip("-") for m in mode.split()),
+                              route)
         n0 = sum(srv.requests.values())
         wall, err = run_cli([sys.executable, "-m", "kma_tpu_torch"] + args
                             + ["-t_db", db, "-o", o(tag)], e, what)
@@ -2445,19 +2473,25 @@ def auto_runs(env, reads, pe1, pe2, db, o, gpu, srv, native_ran):
                 "-device auto -> %s (" % route):
             fail("%s: no decision line 'auto -> %s':\n%s"
                  % (what, route, err[-3000:]))
-        if mode == "default mode" and "the card's figures keep its chain " \
-                "probes on the host" not in dec[0]:
+        idle = {"default mode": "the card's figures keep its chain probes "
+                "on the host", "-ipe -hmm": "-ipe -hmm: the Python pipeline "
+                "sends the card no op", "-ipe -proxi 0.9": "-ipe -proxi 0.9: "
+                "the Python pipeline sends the card no op"}.get(mode)
+        if idle is not None and idle not in dec[0]:
             fail("%s: the decision names no idle daemon: %s" % (what, dec[0]))
         if sum(srv.requests.values()) != n0:
             fail("%s: the run reached the smoke's own daemon" % what)
-        runs_, chain, served = 0, 0, ""
+        runs_, chain, served, ops = 0, 0, "", {}
         if route == "on":
             check_stderr(err, what)
             req, ops, launches, runs_ = launcher_lines(err, what,
                                                        dense=mode == "-1t1")
             chain = ops["chain"]
-            if mode != "-1t1" and chain <= 0:
+            if mode == "-ipe -ex_mode" and chain <= 0:
                 fail("%s: the Python pipeline sent no chain request: %s"
+                     % (what, req))
+            if mode == "-proxi 0.9 500 bp" and ops["nw_qext"] <= 0:
+                fail("%s: the Python pipeline sent no nw_qext request: %s"
                      % (what, req))
             served = "; its daemon served %s; kernel launches %s; %s" % (
                 req, launches, start_lines(err))
@@ -2466,13 +2500,35 @@ def auto_runs(env, reads, pe1, pe2, db, o, gpu, srv, native_ran):
                  % (what, err[-3000:]))
         if host is None:
             host = tag + "_off"
-            run_cli(kma + args + ["-t_db", db, "-o", o(host), "-device",
-                                  "off"], env, what + " -device off")
+            off_wall, _ = run_cli(kma + args + ["-t_db", db, "-o", o(host),
+                                                "-device", "off"], env,
+                                  what + " -device off")
+            if mode == "-proxi 0.9":
+                served_idle[mode] = (off_wall, wall, sum(ops.values()))
         n_res = same_outputs(o(tag), o(host), what)
         say("%s: %s; == -device off (%d templates reported)%s; %.2f s "
             "wall  [%s]" % (what, dec[0], n_res, served, wall, gpu))
-        got["%s %s" % (mode, route)] = (wall, runs_, chain)
-    return got
+        n = {"-proxi 0.9 500 bp": N_LONG}.get(
+            mode, 2 * N_PAIRS if "ipe" in mode else N_READS)
+        got["%s %s" % (mode, route)] = (wall, runs_, chain, n)
+        if mode in ("-ipe -hmm", "-ipe -proxi 0.9"):
+            # what auto did before: a daemon of its own, which gets no op
+            what_on = "python -m kma_tpu_torch %s -device on" % mode
+            on_wall, err = run_cli(
+                [sys.executable, "-m", "kma_tpu_torch"] + args
+                + ["-t_db", db, "-o", o(tag + "_on"), "-device", "on"], e,
+                what_on)
+            check_stderr(err, what_on)
+            req, ops, _, _ = launcher_lines(err, what_on, dense=False)
+            if any(ops.values()):
+                fail("%s: the daemon got requests %s, which python_ops "
+                     "did not predict" % (what_on, ops))
+            same_outputs(o(tag + "_on"), o(host), what_on)
+            before[mode] = (wall, on_wall, sum(ops.values()))
+            say("%s (auto's route before): == -device off; its daemon "
+                "served %s; %.2f s wall (%s)  [%s]" % (
+                    what_on, req, on_wall, start_lines(err), gpu))
+    return got, before, served_idle
 
 
 def chain_client_ms(torch, np, cli, srv, codes, n=8192, reps=5):
@@ -2719,7 +2775,9 @@ def main():
     run_wall, run_served, run_runs = launcher_run(env, reads, db, o,
                                                   gpu)
     # no -device: the entry point decides auto, on the card and on the host
-    auto = auto_runs(env, reads, pe1, pe2, db, o, gpu, srv, native_ran)
+    auto, auto_before, auto_idle = auto_runs(env, reads, long_reads, pe1,
+                                             pe2, db, o, gpu, srv,
+                                             native_ran)
 
     # the default chain mode, PE and -hmm: counts from zero again
     reset_kernel_launches()
@@ -2821,9 +2879,8 @@ def main():
     say("python -m kma_tpu_torch run -1t1 (its own daemon's start, "
         "warm-up and stop included): %.1f reads/s (%.2f s wall)  [%s]"
         % (N_READS / run_wall, run_wall, gpu))
-    for name, (wall, _, chain) in auto.items():
+    for name, (wall, _, chain, n) in auto.items():
         mode, route = name.rsplit(" ", 1)
-        n = 2 * N_PAIRS if "ipe" in mode else N_READS
         say("python -m kma_tpu_torch %s, -device auto -> %s: %.1f reads/s "
             "(%.2f s wall%s)  [%s]" % (
                 mode, route, n / wall, wall,
@@ -2836,6 +2893,16 @@ def main():
             "wall  [%s]" % (auto["default mode host"][0],
                             served_chain["default mode SE"][1],
                             served_chain["default mode SE"][0], gpu))
+    for mode, (host_w, on_w, n_req) in auto_before.items():
+        say("python -m kma_tpu_torch %s: -device auto -> host %.2f s wall; "
+            "the same run -device on, auto's route before (its own daemon's "
+            "start included, %d requests) %.2f s wall  [%s]"
+            % (mode, host_w, n_req, on_w, gpu))
+    for mode, (off_w, on_w, n_req) in auto_idle.items():
+        say("python -m kma_tpu_torch %s (SE, 100 bp reads): -device auto -> "
+            "on %.2f s wall (its own daemon's start included, %d requests); "
+            "bin/kma -device off %.2f s wall  [%s]"
+            % (mode, on_w, n_req, off_w, gpu))
     for name, got in (("panel daemon", pieces),
                       ("cgMLST pair-stream daemon", cg["ps_pieces"])):
         say("ops in pieces (%s, headroom %.1f MB): %s  [%s]" % (

@@ -10,24 +10,36 @@ it.  Only the plain mapping flow scans on the device; the spltDB (several
 ``bin/kma`` unchanged with no daemon.  ``-mh`` (multi-host) is refused.
 
 ``-device`` decides the plain flow as ``kma_tpu.pipeline._device_enabled``
-does, with one departure: ``off`` runs ``bin/kma`` unchanged; ``on``
+does, with two departures: ``off`` runs ``bin/kma`` unchanged; ``on``
 serves the run from a daemon on the card (``launch.py``); ``auto``, the
 default, goes as ``on`` when the ``-i``/``-ipe``/``-int`` files sum to
 at least ``KMA_TPU_DEVICE_AUTO_MB`` MB (default: the card's crossover,
 ``envelope.py``), the served run would send the daemon an op, and a
 device is present, with its ``-device`` value replaced by ``on`` (or
 ``-device on`` appended) and nothing else of the command line changed;
-otherwise ``bin/kma`` runs unchanged on the host.  The departure: a run
-the native CLI takes itself (``native_run``, the port's copy of its
+otherwise ``bin/kma`` runs unchanged on the host.  The departures, both
+runs whose daemon would get no op (``idle_reason``): (1) a run the
+native CLI takes itself (``native_run``, the port's copy of its
 ``-device on`` envelope) in the default chain mode, ``-ipe`` or
-``-hmm`` sends no op while its chain budget ``KMA_TPU_SCAN_MAX_MB`` is
-the card's 0, so ``auto`` keeps it on the host unless the caller sets
-``KMA_DEV_CHAIN=force`` or a budget over 0.  ``-1t1`` (the ``dense``
-op) and every run the native CLI hands to the Python pipeline (whose
-chain clients ignore the budget) are served as before.  The decision is
-printed on stderr before the child starts.  A served child gets the card's
+``-hmm`` sends none while its chain budget ``KMA_TPU_SCAN_MAX_MB`` is
+the card's 0, unless the caller sets ``KMA_DEV_CHAIN=force`` or a
+budget over 0; (2) a run the native CLI hands to the Python pipeline
+sends none where ``python_ops``, the port's copy of the clients
+``run_kma`` builds, finds none: PE or ``-int`` input with ``-hmm`` or an
+active ``-proxi``, and SE input under ``-proxi`` or ``-ont``/``-asm``
+with ``-mem_mode`` or ``KMA_TPU_NW=off`` (no NW pre-pass).  ``-1t1``
+(the ``dense`` op) and every other run are served as before.  The decision is printed on
+stderr before the child starts.  A served child gets the card's
 figures it was not given (``envelope.child_env``) and
 ``KMA_TPU_PILEUP=off``, unless the caller set them.
+
+A DB past the card's dense budget gets the pair-stream image, which
+refuses the ``chain`` op; kma_tpu's Python chain clients stop a run on
+that refusal.  So a run the Python pipeline takes that may send
+``chain`` (``chain_refusal``) goes to the host under ``auto``, with a
+second decision line, and exits 1 under ``on`` before the child
+starts; a run of ``dense`` alone, or one the fused native driver maps,
+is served.
 
 This module imports no torch at import time: a tool subcommand or a
 host run never touches the card.
@@ -35,6 +47,7 @@ host run never touches the card.
 
 from __future__ import annotations
 
+import functools
 import gzip
 import os
 import re
@@ -114,6 +127,21 @@ class MapArgs:
     step1: bool = False
     step2: bool = False
     mh: Optional[str] = None
+    #: the MapConfig fields that choose run_kma's device clients, as
+    #: map_main sets them (in argv order: -hmm clears one2one, a later
+    #: -1t1 or preset sets it again)
+    one2one: bool = False
+    hmm: bool = False
+    ck: bool = False
+    mem_mode: bool = False
+    dense: bool = False
+    min_frac: float = 1.0
+    sam: int = 0
+    xml: int = 0
+    boot: bool = False
+    qc: int = 0
+    pair_mode: str = "u"
+    fpm: str = "u"
     #: map_main would return while parsing (-h, -v, -tsvh, a bad option or
     #: value); bin/kma then prints what it prints
     stop: bool = False
@@ -143,6 +171,12 @@ class MapArgs:
         """The files run_kma sums: stdin (``--``) when none is named."""
         files = self.inputs + self.pe_inputs + self.int_inputs
         return files or ["--"]
+
+    @functools.cached_property
+    def native(self) -> Optional[NativeRun]:
+        """How the native CLI reads the served child's command line
+        (``native_run``): None where the Python pipeline runs it."""
+        return native_run(on_argv(self.argv, self))
 
 
 def parse_map_args(argv: Sequence[str]) -> MapArgs:
@@ -183,16 +217,29 @@ def parse_map_args(argv: Sequence[str]) -> MapArgs:
                 a.stop = True
                 return a
             i += 1
+            v = argv[i]
             if f == "-o":
-                a.out = argv[i]
+                a.out = v
             elif f == "-mh":
-                a.mh = argv[i]
-            elif f == "-Mt1":
+                a.mh = v
+            elif f in ("-Mt1", "-proxi"):
                 try:
-                    a.mt1 = int(argv[i])
+                    x = int(v) if f == "-Mt1" else float(v)
                 except ValueError:
                     a.stop = True
                     return a
+                if f == "-Mt1":
+                    a.mt1 = x
+                elif not -1 <= x <= 1:
+                    a.stop = True
+                    return a
+                else:
+                    a.min_frac = x
+            elif f in ("-pm", "-fpm", "-apm"):
+                if f != "-fpm":
+                    a.pair_mode = v[:1]
+                if f != "-pm":
+                    a.fpm = v[:1]
         elif f == "-spltDB":
             a.splt_db = True
         elif f == "-Sparse":
@@ -205,13 +252,36 @@ def parse_map_args(argv: Sequence[str]) -> MapArgs:
             if i + 1 < n and not argv[i + 1].startswith("-"):
                 i += 1
         elif f in _DIGIT_VALUE:
+            level = 1
             if i + 1 < n and argv[i + 1].isdigit():
                 i += 1
-        elif f not in _NO_VALUE:
+                level = int(argv[i])
+            if f in ("-sam", "-xml"):
+                setattr(a, f[1:], level)
+        elif f in _NO_VALUE:
+            _set_mode(a, f)
+        else:
             a.stop = True
             return a
         i += 1
     return a
+
+
+def _set_mode(a: MapArgs, f: str) -> None:
+    """What a flag of no value sets of ``a``'s device fields
+    (kma_tpu/cli/main.py:275-636)."""
+    if f in _ONE2ONE:
+        a.one2one = True
+    if f == "-hmm":
+        a.hmm, a.one2one = True, False
+    if f in ("-mint2", "-mint3"):
+        a.mem_mode = a.dense = True
+    if f in _PRESET_PROXI:
+        a.min_frac = _PRESET_PROXI[f]
+    if f in ("-ck", "-mem_mode", "-dense", "-boot"):
+        setattr(a, f[1:], True)
+    if f == "-qc":
+        a.qc += 1
 
 
 def auto_threshold_mb(environ: Mapping[str, str] = os.environ) -> int:
@@ -282,9 +352,9 @@ class NativeRun:
                         if m) or "default mode"
 
 
-def _seq_file(path: str) -> bool:
-    """The native CLI's ``seq_format`` (kma_cli.cpp:279-286) is not 0:
-    the first byte as gzopen reads it is '@' or '>'."""
+def _first_byte(path: str) -> bytes:
+    """The first byte of ``path`` as gzopen reads it; b"" when it cannot
+    be read."""
     try:
         with open(path, "rb") as f:
             head = f.read(2)
@@ -292,8 +362,14 @@ def _seq_file(path: str) -> bool:
             with gzip.open(path, "rb") as g:
                 head = g.read(1)
     except (OSError, EOFError, zlib.error):
-        return False
-    return head[:1] in (b"@", b">")
+        return b""
+    return head[:1]
+
+
+def _seq_file(path: str) -> bool:
+    """The native CLI's ``seq_format`` (kma_cli.cpp:279-286) is not 0:
+    the first byte as gzopen reads it is '@' or '>'."""
+    return _first_byte(path) in (b"@", b">")
 
 
 def native_cli_ready() -> bool:
@@ -373,6 +449,111 @@ def native_run(argv: Sequence[str]) -> Optional[NativeRun]:
     return NativeRun(one2one, pe, hmm)
 
 
+# -- the Python pipeline's device envelope ----------------------------------
+# A copy of the daemon clients kma_tpu.pipeline.run_kma builds under
+# -device on (pipeline.py:1525-1900, :2444-2457), for the command lines the
+# native CLI hands over.  What the copy cannot tell counts as "may send":
+# the DB is taken as plain (not sparse, k <= 16, no flag bits), the native
+# aligner as built, and the fused driver as maybe not built unless the
+# caller found it sure (``fused_driver``), so an error here can only start
+# a daemon that was not needed.
+
+#: the native libraries the fused driver loads (kma_tpu/io/native_io.py,
+#: kma_tpu/run_native.py)
+_FUSED_LIBS = ("libkma_io.so", "libkma_run.so")
+
+
+def _fused_gate(a: MapArgs, environ: Mapping[str, str]) -> bool:
+    """The command line passes the fused driver's gate
+    (pipeline.py:1591-1601)."""
+    proxi, _ = _proxi(a)
+    se = [f for f in a.inputs if f != "--"]
+    return (not a.int_inputs
+            and (not a.pe_inputs or (a.pair_mode in ("u", "p")
+                                     and a.fpm in ("u", "p")))
+            and bool(se or a.pe_inputs) and not a.ck and not a.hmm
+            and not proxi and not a.sam and not a.xml and not a.boot
+            and not a.qc and not _dense_stream(a)
+            and not environ.get("KMA_TPU_NO_FUSED"))
+
+
+def _proxi(a: MapArgs) -> Tuple[bool, bool]:
+    """(an active -proxi, a soft one) as the scanners see it: |minFrac|,
+    soft only in mem_mode (pipeline.py:1274-1281)."""
+    frac = -a.min_frac if not a.mem_mode and a.min_frac < 0 else a.min_frac
+    return frac < 1.0, frac < 0
+
+
+def _dense_stream(a: MapArgs) -> bool:
+    """run_kma builds the dense stream (pipeline.py:1535-1545): -1t1,
+    not -ck, no soft -proxi."""
+    return a.one2one and not a.ck and not _proxi(a)[1]
+
+
+def fused_driver(a: MapArgs, environ: Mapping[str, str] = os.environ
+                 ) -> bool:
+    """``run_kma`` surely maps ``a`` with the fused native driver
+    (pipeline.py:1591-1609), so its SE loop never runs: the gate holds,
+    no ``-1t1``, every input is a named FASTQ file (``detect_format``),
+    and the native libraries the driver loads are built and current
+    (``native_build.stale``)."""
+    from . import native_build
+    if a.one2one or "--" in a.inputs or environ.get("KMA_TPU_NO_NATIVE") \
+            or not _fused_gate(a, environ):
+        return False
+    if any(native_build.stale(lib) for lib in native_build.LIBS
+           if lib.name in _FUSED_LIBS):
+        return False
+    return all(_first_byte(f) == b"@" for f in a.inputs + a.pe_inputs)
+
+
+def python_ops(a: MapArgs, environ: Mapping[str, str] = os.environ,
+               fused: bool = False) -> frozenset:
+    """The daemon ops ``kma_tpu.pipeline.run_kma`` may send when it runs
+    ``a`` under -device on (the native CLI hands it over: ``native_run``
+    is None), ``environ`` being the child's environment: ``dense``,
+    ``chain``, ``nw_qext``, ``pileup``.  ``fused``: the caller found
+    that the fused driver maps the run (``fused_driver``); otherwise the
+    SE loop counts as taken too.  ``nw_qext`` depends on the reads (a
+    window over 1 << 15 cells), so it is counted wherever the SE loop's
+    batched step 3 runs."""
+    proxi, _ = _proxi(a)
+    paired = bool(a.pe_inputs or a.int_inputs)
+    dense = _dense_stream(a)
+    ops = set()
+    # the fused driver's PE feed probes through the chain op (:1667-1672,
+    # pe_device.py:87-99); its SE feed sends nothing
+    if a.pe_inputs and _fused_gate(a, environ):
+        ops.add("chain")
+    # the unfused SE loop (:1675); the unfused PE loop sends nothing
+    se = (any(f != "--" for f in a.inputs) or not paired) and not fused
+    if se:
+        if dense:
+            ops.add("dense")
+        elif a.hmm or (a.ck and a.one2one):
+            ops.add("chain")            # DeviceHmmStream (:1886-1895)
+        elif not a.one2one and not proxi:
+            ops.add("chain")            # DeviceChainStream (:1841-1850)
+        # the NW pre-pass (:1559, :1566-1570, used at :1729-1733, the SE
+        # loop's step 3 only; nw_device.py:216-232)
+        if not a.mem_mode and environ.get("KMA_TPU_NW", "auto") != "off":
+            ops.add("nw_qext")
+    # the pileup client (:2444-2457); the launcher gives every served run
+    # KMA_TPU_PILEUP=off unless the caller set it
+    if a.dense and environ.get("KMA_TPU_PILEUP", "off") != "off":
+        ops.add("pileup")
+    return frozenset(ops)
+
+
+def _options(a: MapArgs) -> str:
+    """``a``'s command line but its files, DB, output and ``-device``:
+    what the decision line names."""
+    skip = set(a.input_files()) | set(a.dbs) | {
+        a.out, "-i", "-t_db", "-o", "-device", "--"}
+    return " ".join(f for j, f in enumerate(a.argv) if f not in skip
+                    and a.argv[j - 1:j] != ["-device"]) or "default mode"
+
+
 def _atoll(s: str) -> int:
     """C's atoll: the leading integer of ``s``, 0 when there is none."""
     m = re.match(r"\s*([+-]?\d+)", s)
@@ -386,9 +567,14 @@ def idle_reason(a: MapArgs, environ: Mapping[str, str] = os.environ
     and its chain budget (``KMA_TPU_SCAN_MAX_MB``, the card's 0 unless
     the caller set it) keeps every chain probe on the host
     (kma_cli.cpp:1010-1023 SE, :1305-1326 PE) unless
-    ``KMA_DEV_CHAIN=force``."""
-    nr = native_run(on_argv(a.argv, a))
-    if nr is None or nr.one2one or environ.get("KMA_DEV_CHAIN") == "force":
+    ``KMA_DEV_CHAIN=force``; or the native CLI hands it to the Python
+    pipeline, and ``python_ops`` is empty."""
+    nr = a.native
+    if nr is None:
+        if python_ops(a, environ):
+            return None
+        return "%s: the Python pipeline sends the card no op" % _options(a)
+    if nr.one2one or environ.get("KMA_DEV_CHAIN") == "force":
         return None
     name = "KMA_TPU_SCAN_MAX_MB"
     if name in environ:
@@ -400,6 +586,24 @@ def idle_reason(a: MapArgs, environ: Mapping[str, str] = os.environ
         return None
     return "%s: the card's figures keep its chain probes on the host, " \
         "%s %d" % (nr.mode, name, envelope.value(name))
+
+
+def chain_refusal(a: MapArgs, environ: Mapping[str, str] = os.environ
+                  ) -> Optional[str]:
+    """Why a daemon on the pair-stream image (a DB past the card's dense
+    budget) cannot serve ``a``, or None when it can: the run goes to the
+    Python pipeline and may send ``chain``, which that image refuses
+    (devserve.ChainRefused), and kma_tpu's chain clients stop the run on
+    the refusal (ROADMAP.md, Queue 3).  The native CLI's chain probes
+    take the host at parity instead, and a run of ``dense`` alone
+    (-1t1) or one the fused driver maps (``fused_driver``) is served."""
+    if a.native is not None or "chain" not in python_ops(
+            a, environ, fused_driver(a, environ)):
+        return None
+    return "%s on the pair-stream image of %s: the image refuses the " \
+        "chain op, and the Python pipeline's chain clients stop the run " \
+        "on that refusal (a fault of kma_tpu, ROADMAP.md Queue 3)" % (
+            _options(a), a.dbs[0])
 
 
 def decide(a: MapArgs, present: Callable[[], bool],
@@ -520,7 +724,18 @@ def run(argv: List[str], device=None, devices=None,
         print("# kma_tpu_torch run: no device daemon for %s: %r" % (db, e),
               file=sys.stderr)
         return 1
-    return launch.serve_run(srv, db, [KMA] + on_argv(argv, a), env)
+    refused = chain_refusal(a, env) if srv.scanner_kind == "pair_stream" \
+        else None
+    if refused is None:
+        return launch.serve_run(srv, db, [KMA] + on_argv(argv, a), env)
+    del srv
+    launch.free_cards()
+    if a.device == "auto":
+        say("-device auto -> host (%s; the host runs it at parity)" % refused)
+        return child(argv, env)
+    print("# kma_tpu_torch run: -device on cannot serve this run: %s; run "
+          "it with -device off or auto" % refused, file=sys.stderr)
+    return 1
 
 
 def main(argv: List[str]) -> int:

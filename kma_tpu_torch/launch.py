@@ -21,6 +21,7 @@ parity), makes the exit code non-zero whatever the child's.
 
 from __future__ import annotations
 
+import gc
 import os
 import shutil
 import subprocess
@@ -112,6 +113,13 @@ def start(db: str, device: DeviceLike = None,
         sum(s for _, s in stages),
         ", ".join("%s %.2f" % kv for kv in stages)), file=sys.stderr)
     return srv
+
+
+def free_cards() -> None:
+    """Give the cards back the memory of a daemon dropped unserved."""
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
 
 
 def serve_run(srv: TorchDevServer, db: str, cmd: List[str],

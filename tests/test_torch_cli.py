@@ -4,9 +4,12 @@ where a served run would send the card no op.
 
 The parser and the decision are held against ``kma_tpu.cli.main`` and
 ``kma_tpu.pipeline._device_enabled`` on a table of command lines,
-thresholds and file sizes; the port departs from it exactly where the
-native CLI would run the command line itself in a chain mode whose
-probes the card's chain budget keeps on the host (``cli.idle_reason``).
+thresholds and file sizes; the port departs from it exactly where a
+served run would send the daemon no op (``cli.idle_reason``): the native
+CLI would run the command line itself in a chain mode whose probes the
+card's chain budget keeps on the host, or the Python pipeline would build
+no client of the daemon for it (``cli.python_ops``, held against a CPU
+daemon in tests/test_torch_python_ops.py).
 Over the threshold a CPU daemon serves ``-1t1`` (dense), the native
 default mode with ``KMA_DEV_CHAIN=force`` (chain) and ``-ipe -hmm``
 (the Python pipeline's chain requests) at byte parity with ``-device
@@ -19,6 +22,7 @@ the spltDB, ``-Mt1``, ``-Sparse``, ``-s1`` and ``-s2`` flows start no
 daemon; ``-mh`` and a bad ``-device`` value exit 1 with no child."""
 
 import os
+import random
 import subprocess
 import sys
 
@@ -98,13 +102,26 @@ DECISION_CASES = {
 THRESHOLDS = [None, "0", "1", "2", "4", "-1", "x"]
 
 
+#: the reason the decision line gives where the native CLI's chain
+#: budget leaves its daemon idle
+BUDGET = "%s: the card's figures keep its chain probes on the host, " \
+    "KMA_TPU_SCAN_MAX_MB 0"
+#: the reason it gives where the Python pipeline would send no op
+NO_OP = "%s: the Python pipeline sends the card no op"
 #: cases where the port keeps on the host what the JAX package sends to
-#: the device: the native CLI runs them itself (sequence files, options
-#: it parses, no -1t1, no active -proxi, no PE with -hmm) in a chain mode
-#: whose probes the card's chain budget (KMA_TPU_SCAN_MAX_MB 0) keeps on
-#: the host, so a served run would send the daemon no op
-DEPARTS = {"default_mode_small": "default mode", "ipe": "-ipe",
-           "i_and_ipe": "-ipe", "device_twice": "default mode"}
+#: the device, by the reason named: the native CLI runs them itself
+#: (sequence files, options it parses, no -1t1, no active -proxi, no PE
+#: with -hmm) in a chain mode whose probes the card's chain budget
+#: (KMA_TPU_SCAN_MAX_MB 0) keeps on the host, or it hands them to the
+#: Python pipeline, which builds no client of the daemon for them (-int
+#: with -hmm: the unfused PE loop; -mint2 with -ont: a soft -proxi, no
+#: dense stream, no NW pre-pass in mem_mode, -dense's pileup off); so a
+#: served run would send the daemon no op
+DEPARTS = {"default_mode_small": BUDGET % "default mode",
+           "ipe": BUDGET % "-ipe", "i_and_ipe": BUDGET % "-ipe",
+           "device_twice": BUDGET % "default mode",
+           "int": NO_OP % "-int -hmm",
+           "presets": NO_OP % "-mint2 -ont -ex_mode -ef"}
 
 
 @pytest.fixture(scope="module")
@@ -184,9 +201,7 @@ def test_decision_matches_jax(case, sized_files, monkeypatch, capsys):
                 assert a.flow == flow, where
             if case in DEPARTS and jax_on:
                 assert not on, where
-                assert why.endswith(
-                    "; %s: the card's figures keep its chain probes on the "
-                    "host, KMA_TPU_SCAN_MAX_MB 0" % DEPARTS[case]), where
+                assert why.endswith("; " + DEPARTS[case]), (where, why)
                 departed += 1
             else:
                 assert on == jax_on, where
@@ -196,36 +211,114 @@ def test_decision_matches_jax(case, sized_files, monkeypatch, capsys):
 
 # -- auto serves only a run that would send the card an op -----------------
 
+#: the caller's chain budget in the reason
+CALLER = "%s: the caller's KMA_TPU_SCAN_MAX_MB=%s keeps its chain probes " \
+    "on the host"
 #: (command line after "-i {R} -t_db {D} -o {O}" or with its own inputs,
-#: environment, whether auto serves it, the mode the host reason names)
+#: environment, whether auto serves it, the reason a host decision names
+#: after "input N MB >= 0 MB; "); {S} 100 bp reads, {L} 300 bp reads
 IDLE_CASES = {
-    "default": ("", {}, False, "default mode"),
-    "ipe": ("-ipe {R} {r}", {}, False, "-ipe"),
-    "int": ("-int {R}", {}, False, "-int"),
-    "hmm": ("-hmm", {}, False, "-hmm"),
+    "default": ("", {}, False, BUDGET % "default mode"),
+    "ipe": ("-ipe {R} {r}", {}, False, BUDGET % "-ipe"),
+    "int": ("-int {R}", {}, False, BUDGET % "-int"),
+    "hmm": ("-hmm", {}, False, BUDGET % "-hmm"),
     "1t1": ("-1t1", {}, True, None),
     "1t1_hmm": ("-hmm -1t1", {}, True, None),
     "mint2_preset": ("-mint2", {}, True, None),
-    "ipe_hmm": ("-ipe {R} {r} -hmm", {}, True, None),
+    "ipe_hmm": ("-ipe {R} {r} -hmm", {}, False, NO_OP % "-ipe -hmm"),
     "proxi": ("-proxi 0.9", {}, True, None),
     "proxi_minus_1": ("-proxi -1", {}, True, None),
     "ont_preset": ("-ont", {}, True, None),
-    "sam": ("-sam", {}, False, "default mode"),
-    "sam_digits": ("-sam 2 -tsv", {}, False, "default mode"),
+    "sam": ("-sam", {}, False, BUDGET % "default mode"),
+    "sam_digits": ("-sam 2 -tsv", {}, False, BUDGET % "default mode"),
     "python_only_flag": ("-ex_mode", {}, True, None),
     "bad_apm": ("-apm x", {}, True, None),
     "conclave_3": ("-ConClave 3", {}, True, None),
     "not_a_sequence_file": ("-i {Z}", {}, True, None),
-    "gzipped_fastq": ("-i {G}", {}, False, "default mode"),
+    "gzipped_fastq": ("-i {G}", {}, False, BUDGET % "default mode"),
     "stdin": ("-i --", {}, True, None),
     "dev_chain_force": ("", {"KMA_DEV_CHAIN": "force"}, True, None),
-    "dev_chain_other": ("", {"KMA_DEV_CHAIN": "on"}, False, "default mode"),
+    "dev_chain_other": ("", {"KMA_DEV_CHAIN": "on"}, False,
+                        BUDGET % "default mode"),
     "scan_max_mb_8": ("-hmm", {"KMA_TPU_SCAN_MAX_MB": "8"}, True, None),
     "scan_max_mb_0": ("", {"KMA_TPU_SCAN_MAX_MB": "0"}, False,
-                      "default mode"),
+                      CALLER % ("default mode", "0")),
     "scan_max_mb_text": ("", {"KMA_TPU_SCAN_MAX_MB": "x"}, False,
-                         "default mode"),
+                         CALLER % ("default mode", "x")),
+    # the Python pipeline's runs, decided by python_ops
+    "pe_hmm": ("-ipe {S} {S} -hmm", {}, False, NO_OP % "-ipe -hmm"),
+    "int_hmm": ("-int {S} -hmm", {}, False, NO_OP % "-int -hmm"),
+    "i_and_ipe_hmm": ("-i {S} -ipe {S} {S} -hmm", {}, True, None),
+    # SE reads may reach the NW pre-pass, whatever their lengths
+    "se_proxi": ("-i {S} -proxi 0.9", {}, True, None),
+    "se_proxi_gz": ("-i {Sz} -proxi 0.9", {}, True, None),
+    "se_proxi_fasta": ("-i {Sa} -proxi 0.9", {}, True, None),
+    "pe_proxi": ("-ipe {S} {S} -proxi 0.9", {}, False,
+                 NO_OP % "-ipe -proxi 0.9"),
+    "pe_proxi_long": ("-ipe {L} {L} -proxi 0.9", {}, False,
+                      NO_OP % "-ipe -proxi 0.9"),
+    "se_proxi_minus_1": ("-i {S} -proxi -1", {}, True, None),
+    "pe_proxi_minus_1": ("-ipe {S} {S} -proxi -1", {}, True, None),
+    "pe_proxi_minus_1_mem_mode": ("-ipe {S} {S} -proxi -1 -mem_mode", {},
+                                  False, NO_OP % "-ipe -proxi -1 -mem_mode"),
+    "ont": ("-i {S} -ont", {}, True, None),
+    "ont_long": ("-i {L} -ont", {}, True, None),
+    "asm_long_fasta": ("-i {La} -asm", {}, True, None),
+    "ill": ("-i {S} -ill", {}, True, None),
+    "mem_mode": ("-i {S} -mem_mode", {}, False,
+                 BUDGET % "default mode"),
+    "proxi_mem_mode_long": ("-i {L} -proxi 0.9 -mem_mode", {}, False,
+                            NO_OP % "-proxi 0.9 -mem_mode"),
+    "proxi_long": ("-i {L} -proxi 0.9", {}, True, None),
+    "proxi_long_nw_off": ("-i {L} -proxi 0.9", {"KMA_TPU_NW": "off"}, False,
+                          NO_OP % "-proxi 0.9"),
+    "proxi_short_and_long": ("-i {S} {L} -proxi 0.9", {}, True, None),
+    "proxi_stdin": ("-i -- -proxi 0.9", {}, True, None),
+    "ipe_ex_mode": ("-ipe {S} {S} -ex_mode", {}, True, None),
+    "ipe_hmm_dense_pileup": ("-ipe {S} {S} -hmm -dense",
+                             {"KMA_TPU_PILEUP": "auto"}, True, None),
+    "ipe_hmm_dense": ("-ipe {S} {S} -hmm -dense", {}, False,
+                      NO_OP % "-ipe -hmm -dense"),
+    "stale_native_cli_default": ("-i {S}", {}, True, None),
+    "stale_native_cli_hmm": ("-i {S} -hmm", {}, True, None),
+    "stale_native_cli_ipe": ("-ipe {S} {S}", {}, True, None),
+    "stale_native_cli_ipe_hmm": ("-ipe {S} {S} -hmm", {}, False,
+                                 NO_OP % "-ipe -hmm"),
 }
+
+
+def _idle_files(d, sized_files):
+    """``sized_files`` and small real inputs under ``d``: {S} 100 bp and
+    {L} 300 bp FASTQ reads, {Sz} {S} gzipped, {Sa} {La} FASTA records of
+    two lines, {Z} not reads, {G} one gzipped FASTQ read."""
+    import gzip as gz
+    rng = random.Random(5)
+
+    def fq(path, n, L, op=open):
+        with op(path, "wt") as f:
+            for i in range(n):
+                s = "".join(rng.choice("ACGT") for _ in range(L))
+                f.write("@r%d\n%s\n+\n%s\n" % (i, s, "I" * L))
+
+    def fa(path, n, L):
+        with open(path, "w") as f:
+            for i in range(n):
+                s = "".join(rng.choice("ACGT") for _ in range(L))
+                f.write(">c%d\n%s\n%s\n" % (i, s[:L // 2], s[L // 2:]))
+
+    files = dict(sized_files, **{k: str(d / v) for k, v in (
+        ("S", "s.fq"), ("L", "l.fq"), ("Sz", "s.fq.gz"), ("Sa", "s.fa"),
+        ("La", "l.fa"), ("Z", "z.txt"), ("G", "g.fq.gz"))})
+    fq(files["S"], 20, 100)
+    fq(files["L"], 20, 300)
+    fq(files["Sz"], 20, 100, gz.open)
+    fa(files["Sa"], 20, 256)
+    fa(files["La"], 20, 258)
+    with open(files["Z"], "w") as f:
+        f.write("not reads\n")
+    with gz.open(files["G"], "wt") as f:
+        f.write("@r\nACGT\n+\nIIII\n")
+    return files
 
 
 @pytest.mark.parametrize("case", sorted(IDLE_CASES))
@@ -233,21 +326,18 @@ def test_auto_serves_a_run_only_with_an_op_to_send(case, sized_files,
                                                    tmp_path, monkeypatch):
     """``decide`` over the threshold: a command line the native CLI runs
     itself in a chain mode, its chain budget the card's 0 or the
-    caller's 0, stays on the host with the reason named; -1t1 (and the
-    presets that set it), a flow the native CLI hands to the Python
-    pipeline (PE with -hmm, an active or -1 -proxi, an option it does not
-    parse, a bad value, input that is not a sequence file, stdin),
-    ``KMA_DEV_CHAIN=force`` and a budget over 0 are served.  The card is
-    not asked about a run kept on the host."""
-    import gzip as gz
-    monkeypatch.setattr(cli, "native_cli_ready", lambda: True)
-    flags, environ, served, mode = IDLE_CASES[case]
-    files = dict(sized_files, Z=str(tmp_path / "z.txt"),
-                 G=str(tmp_path / "g.fq.gz"))
-    with open(files["Z"], "w") as f:
-        f.write("not reads\n")
-    with gz.open(files["G"], "wt") as f:
-        f.write("@r\nACGT\n+\nIIII\n")
+    caller's 0, stays on the host with the reason named; so does one it
+    hands to the Python pipeline (PE with -hmm, an active or -1 -proxi,
+    an option it does not parse, a bad value, input that is not a
+    sequence file, stdin, every run where bin/kma would not run the
+    native CLI) where ``python_ops`` finds no op to send.  -1t1 (and the
+    presets that set it), ``KMA_DEV_CHAIN=force``, a budget over 0 and
+    a Python-pipeline run with an op are served.  The card is not asked
+    about a run kept on the host."""
+    monkeypatch.setattr(cli, "native_cli_ready",
+                        lambda: not case.startswith("stale_"))
+    flags, environ, served, reason = IDLE_CASES[case]
+    files = _idle_files(tmp_path, sized_files)
     inputs = "" if flags.startswith(("-ipe", "-int", "-i ")) else "-i {R}"
     argv = ("%s %s -t_db {D} -o {O}" % (inputs, flags)).format(
         **files).split()
@@ -260,20 +350,68 @@ def test_auto_serves_a_run_only_with_an_op_to_send(case, sized_files,
     assert bool(asked) == served
     if served:
         assert why == "input %s MB >= 0 MB" % why.split()[1]
-    elif "KMA_TPU_SCAN_MAX_MB" in environ:
-        assert why.endswith("; %s: the caller's KMA_TPU_SCAN_MAX_MB=%s "
-                            "keeps its chain probes on the host"
-                            % (mode, environ["KMA_TPU_SCAN_MAX_MB"])), why
     else:
-        assert why.endswith("; %s: the card's figures keep its chain "
-                            "probes on the host, KMA_TPU_SCAN_MAX_MB 0"
-                            % mode), why
+        assert why == "input %s MB >= 0 MB; %s" % (why.split()[1],
+                                                   reason), why
+    if cli.native_run(cli.on_argv(argv, a)) is None:
+        assert bool(cli.python_ops(a, environ)) == served
     # under the threshold, -device on and -device off nothing changed
     environ["KMA_TPU_DEVICE_AUTO_MB"] = "1000000"
     assert cli.decide(a, lambda: True, environ)[0] is False
     for device, want in (("on", True), ("off", False)):
         b = cli.parse_map_args(argv + ["-device", device])
         assert cli.decide(b, lambda: True, environ) == (want, None)
+
+
+#: (command line before "-t_db", environment, whether run_kma surely maps
+#: it with the fused driver: pipeline.py:1591-1609); {S} 100 bp FASTQ,
+#: {Sz} gzipped, {Sa} FASTA
+FUSED_CASES = {
+    "se": ("-i {S}", {}, True),
+    "se_gzipped": ("-i {Sz}", {}, True),
+    "se_ex_mode": ("-i {S} -ex_mode", {}, True),
+    "pe": ("-ipe {S} {S}", {}, True),
+    "pe_and_se": ("-i {S} -ipe {S} {S}", {}, True),
+    "proxi_minus_1": ("-i {S} -proxi -1", {}, True),
+    "fasta": ("-i {Sa}", {}, False),
+    "fastq_and_fasta": ("-i {S} {Sa}", {}, False),
+    "stdin": ("-i --", {}, False),
+    "file_and_stdin": ("-i {S} --", {}, False),
+    "int": ("-int {S}", {}, False),
+    "pe_pm_f": ("-ipe {S} {S} -pm f", {}, False),
+    "hmm": ("-i {S} -hmm", {}, False),
+    "ck": ("-i {S} -ck", {}, False),
+    "proxi": ("-i {S} -proxi 0.9", {}, False),
+    "ont": ("-i {S} -ont", {}, False),
+    "1t1": ("-i {S} -1t1", {}, False),
+    "sam": ("-i {S} -sam", {}, False),
+    "xml": ("-i {S} -xml 2", {}, False),
+    "boot": ("-i {S} -boot", {}, False),
+    "qc": ("-i {S} -qc", {}, False),
+    "no_fused": ("-i {S}", {"KMA_TPU_NO_FUSED": "1"}, False),
+    "no_native": ("-i {S}", {"KMA_TPU_NO_NATIVE": "1"}, False),
+    "libs_stale": ("-i {S}", {}, False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FUSED_CASES))
+def test_fused_driver(case, sized_files, tmp_path, monkeypatch):
+    """``fused_driver`` holds only where run_kma's fused gate holds on
+    the command line, every input is a named FASTQ file and the native
+    libraries the driver loads are current; there ``python_ops`` counts
+    no SE loop, so an SE run sends nothing and a PE run only the fused
+    feed's chain probes."""
+    from kma_tpu_torch import native_build
+    monkeypatch.setattr(native_build, "stale",
+                        lambda lib: case == "libs_stale")
+    flags, environ, want = FUSED_CASES[case]
+    files = _idle_files(tmp_path, sized_files)
+    a = cli.parse_map_args(("%s -t_db {D} -o {O}" % flags).format(
+        **files).split())
+    assert cli.fused_driver(a, environ) is want
+    if want:
+        assert cli.python_ops(a, environ, True) == (
+            {"chain"} if a.pe_inputs else set())
 
 
 @pytest.mark.parametrize("cli_state", ["ready", "missing", "stale",
