@@ -997,6 +997,13 @@ def cli_parity(srv, cmd, args, env_on, env_off, o, tag, what, host=None):
     return on, off, ms, err, err_off, n_res
 
 
+def chain_spans(srv):
+    """(rows, windows, wall ms) of each chain request the daemon's span
+    record holds."""
+    return [(s.a, s.b, 1e3 * (s.t1 - s.t0)) for s in srv.spans.snapshot()
+            if s.name == "chain"]
+
+
 def with_budget_mb(mb, build):
     """``build()`` under ``KMA_TPU_DENSE_BUDGET_MB=mb``, the daemon's
     budget override (unset again after: the CLIs need not see it)."""
@@ -1008,12 +1015,11 @@ def with_budget_mb(mb, build):
 
 
 def reset_counts(srv):
-    """A daemon's request, dense-op, graph-replay and scan counts set to
-    zero (a loop variable left bound to a scanner would keep its image
-    alive past the daemon's teardown)."""
+    """A daemon's request, graph-replay and scan counts and its span
+    record set to zero (a loop variable left bound to a scanner would
+    keep its image alive past the daemon's teardown)."""
     srv.requests.clear()
-    srv.dense_ms.clear()
-    srv.chain_ms.clear()
+    srv.spans.reset()
     srv.reads_scanned = srv.reads_overflow = 0
     for g in (srv.graphs, srv.chain_graphs):
         if g is not None:
@@ -1306,7 +1312,7 @@ def phase_e_big_db(torch, np, work, env, env_off, py_cli, native_ran, gpu,
             "served from %d chain graph replays, %d templates reported"
             % (name, n_chain, n_rep, n_res))
         chain_walls[name] = (on, off)
-    chain_ms = sorted(ms for _, _, ms in srv.chain_ms)
+    chain_ms = sorted(ms for _, _, ms in chain_spans(srv))
     say("cgMLST chain graphs after the runs: %s  [%s]"
         % (chain_keys(chain_g), gpu))
     chain_cmp = chain_eager_replay(torch, np, srv, o("cg.fq"), CG_READ_LEN,
@@ -2687,7 +2693,7 @@ def main():
     # main path: counts from zero
     reset_kernel_launches()
     srv.requests.clear()
-    srv.dense_ms.clear()
+    srv.spans.reset()
     graphs.replays.clear()
     srv.reads_scanned = srv.reads_overflow = 0
     dev_wall, err = run_cli(py_cli + ["-i", reads, "-t_db", db, "-o",
@@ -2800,7 +2806,7 @@ def main():
     n_codes_req = phase_c_ops(torch, np, cli, aln, seqs)
     chain_launches = kernel_launches()
     chain_requests = dict(srv.requests)
-    chain_ms = list(srv.chain_ms)
+    chain_ms = chain_spans(srv)
     cc_n, cc_ms = chain_client_ms(torch, np, cli, srv, codes)
     # (h) the NW and pileup ops past the ops headroom: a daemon of the
     # panel built with a lowered headroom answers in pieces, the panel

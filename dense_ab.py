@@ -111,7 +111,7 @@ graphs = getattr(srv, "graphs", None)
 STATS = ("tier0_batches", "tier0_spills", "wide_reads")
 one_pass()                                  # first sight of every shape
 torch.cuda.synchronize()
-srv.dense_ms.clear()
+srv.spans.reset()
 reset_kernel_launches()
 if graphs is not None:
     graphs.replays.clear()

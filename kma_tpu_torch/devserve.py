@@ -59,6 +59,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import functools
+import itertools
 import json
 import os
 import queue
@@ -73,7 +74,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from . import envelope
+from . import envelope, tracing
 from .config import Penalties
 from .device import DeviceLike, resolve
 from .index.format import load_index
@@ -275,9 +276,22 @@ def _recv(sock: socket.socket, idle_timeout: Optional[float] = None,
     """Receive one frame.  With timeouts set: wait up to idle_timeout
     for the frame to start, then up to frame_timeout for the rest;
     socket.timeout propagates to the caller, who drops the peer."""
+    head = _recv_head(sock, idle_timeout)
+    return _recv_rest(sock, head, frame_timeout)
+
+
+def _recv_head(sock: socket.socket, idle_timeout: Optional[float]
+               ) -> bytearray:
+    """A frame's length word, once the frame starts."""
     if idle_timeout is not None:
         sock.settimeout(idle_timeout)
-    head = _recv_exact(sock, _HDR.size)
+    return _recv_exact(sock, _HDR.size)
+
+
+def _recv_rest(sock: socket.socket, head: bytearray,
+               frame_timeout: Optional[float]
+               ) -> Tuple[dict, Dict[str, np.ndarray]]:
+    """The rest of the frame ``head`` starts: (meta, arrays)."""
     if frame_timeout is not None:
         sock.settimeout(frame_timeout)
     (hlen,) = _HDR.unpack(bytes(head))
@@ -376,12 +390,15 @@ class TorchDevServer:
         self._default_pen = Penalties()
         self.scanners: Dict[tuple, object] = {}
         self._stats_lock = threading.Lock()
+        #: serialises the ops' device work over the connections
+        self.op_lock = threading.Lock()
         #: requests served per op ("dense" counts pipelined ones too)
         self.requests: collections.Counter = collections.Counter()
-        #: wall ms of each dense request, dispatch plus resolve
-        self.dense_ms: List[float] = []
-        #: (rows, windows, wall ms) of each chain request
-        self.chain_ms: List[tuple] = []
+        #: the span record of the requests served (``tracing``)
+        self.spans = tracing.Recorder(self.device, self._stats_lock)
+        #: wall ms of each dense request the record holds, dispatch plus
+        #: resolve, in resolve order (a view of ``spans``)
+        self.dense_ms = tracing.DenseMs(self.spans)
         #: reads answered by the dense op, and those flagged overflow
         #: (the client's host scanner rescans them)
         self.reads_scanned = 0
@@ -446,35 +463,43 @@ class TorchDevServer:
         return sc
 
     def _dense_dispatch(self, meta, arrays):
-        """Dispatch half of the dense op: (scanner, (handle, dispatch
-        ms)) for _dense_pack."""
+        """Dispatch half of the dense op: (scanner, (handle, request))
+        for _dense_pack; the request is the serve loop's, else a new
+        one of ``spans``."""
         self._count("dense")
         if meta.get("pipeline"):
             self._count("dense_pipelined")
-        t0 = time.perf_counter()
-        sc = self._scanner(meta)
-        h = sc.scan_dispatch(np.asarray(arrays["codes"]),
-                             np.asarray(arrays["lengths"]))
-        return sc, (h, 1e3 * (time.perf_counter() - t0))
-
-    def _dense_pack(self, sc, h_ms):
-        h, dispatch_ms = h_ms
-        t0 = time.perf_counter()
+        req = tracing.current() or self.spans.request()
         try:
-            scores, modes, tid_lists, over = sc.scan_resolve(h)
+            with req.span(tracing.DISPATCH) as sp:
+                sc = self._scanner(meta)
+                h = sc.scan_dispatch(np.asarray(arrays["codes"]),
+                                     np.asarray(arrays["lengths"]))
+        except BaseException:
+            req.settle()
+            raise
+        req.dispatch_ns = round(1e9 * (sp.t1 - sp.t0))
+        return sc, (h, req)
+
+    def _dense_pack(self, sc, h_req):
+        h, req = h_req
+        synced = False
+        try:
+            with req.span(tracing.RESOLVE, b=req.dispatch_ns):
+                scores, modes, tid_lists, over = sc.scan_resolve(h)
+            synced = True
         finally:
-            ms = 1e3 * (time.perf_counter() - t0) + dispatch_ms
-            with self._stats_lock:
-                self.dense_ms.append(ms)
+            req.settle(synced)
         with self._stats_lock:
             self.reads_scanned += len(over)
             self.reads_overflow += int(over.sum())
-        has, counts, flat = _pack_tid_lists(tid_lists)
-        return {"ok": 1}, [("scores", scores.astype(np.int32)),
-                           ("modes", modes.astype(np.uint8)),
-                           ("over", over.astype(np.uint8)),
-                           ("has", has), ("counts", counts),
-                           ("flat", flat)]
+        with req.span(tracing.PACK):
+            has, counts, flat = _pack_tid_lists(tid_lists)
+            return {"ok": 1}, [("scores", scores.astype(np.int32)),
+                               ("modes", modes.astype(np.uint8)),
+                               ("over", over.astype(np.uint8)),
+                               ("has", has), ("counts", counts),
+                               ("flat", flat)]
 
     def _op_dense(self, meta, arrays):
         return self._dense_pack(*self._dense_dispatch(meta, arrays))
@@ -534,13 +559,10 @@ class TorchDevServer:
             # as the JAX package keeps chain probes of such DBs on the
             # host (chain_device.py:288-289); the reply is {"ok": 0}
             raise ChainRefused("device chain lookup needs the dense index")
-        t0 = time.perf_counter()
         rows_f, rows_rc = chain_lookup_dense(self.didx, self.idx,
                                              arrays["codes"],
                                              arrays["lengths"])
-        with self._stats_lock:
-            self.chain_ms.append((rows_f.shape[0], rows_f.shape[1],
-                                  1e3 * (time.perf_counter() - t0)))
+        tracing.annotate(rows_f.shape[0], rows_f.shape[1])
         return {"ok": 1}, [("rows_f", rows_f), ("rows_rc", rows_rc)]
 
     def _op_nw(self, meta, arrays):
@@ -676,7 +698,8 @@ class TorchDevServer:
         with the "pipeline" flag is dispatched at once and answered when
         the next request arrives, so one request's upload and dispatch
         overlap the previous one's device work; ``flush`` ends the
-        stream."""
+        stream.  Every frame is a request of ``spans``: the connection's
+        number and the frame's on it."""
         sock_path = sock_path or socket_path(self.db)
         d = os.path.dirname(sock_path)
         os.makedirs(d, exist_ok=True)
@@ -700,6 +723,7 @@ class TorchDevServer:
         srv.listen(8)
         print("# devserve: serving %s at %s" % (self.db, sock_path),
               file=sys.stderr, flush=True)
+        self.spans.anchor()
         if ready_cb is not None:
             ready_cb()
         ops = {"dense": self._op_dense, "chain": self._op_chain,
@@ -707,9 +731,9 @@ class TorchDevServer:
                "nw_qext": self._op_nw_qext,
                "pileup": self._op_pileup, "hello": self._op_hello}
         stop_ev = threading.Event()
-        op_lock = threading.Lock()
+        op_lock = self.op_lock
 
-        def handle(conn: socket.socket) -> None:
+        def handle(conn: socket.socket, cid: int) -> None:
             sendq: queue.Queue = queue.Queue()
 
             def writer():
@@ -730,12 +754,13 @@ class TorchDevServer:
 
             wt = threading.Thread(target=writer, daemon=True)
             wt.start()
-            pending = []  # [(scanner, handle)] of pipelined dense requests
+            # (scanner, (handle, request)) of pipelined dense requests
+            pending = []
 
             def resolve_pending():
                 while pending:
                     sc, h = pending.pop(0)
-                    with op_lock:
+                    with h[1].under(op_lock):
                         try:
                             rm, ra = self._dense_pack(sc, h)
                         except Exception as e:
@@ -743,18 +768,24 @@ class TorchDevServer:
                     sendq.put((rm, ra))
 
             try:
-                while not stop_ev.is_set():
+                for seq in itertools.count():
+                    if stop_ev.is_set():
+                        break
                     try:
-                        meta, arrays = _recv(conn, _IDLE_TIMEOUT,
-                                             _FRAME_TIMEOUT)
+                        head = _recv_head(conn, _IDLE_TIMEOUT)
+                        t0 = time.perf_counter()
+                        meta, arrays = _recv_rest(conn, head,
+                                                  _FRAME_TIMEOUT)
                     except socket.timeout:
                         print("# devserve: dropping stalled client",
                               file=sys.stderr, flush=True)
                         return
+                    req = self.spans.request(cid, seq)
+                    req.add(tracing.RECV, t0, time.perf_counter())
                     op = meta.get("op")
                     if op == "dense" and meta.get("pipeline"):
                         try:
-                            with op_lock:
+                            with req.under(op_lock):
                                 sc_h = self._dense_dispatch(meta, arrays)
                         except Exception as e:
                             resolve_pending()
@@ -785,8 +816,12 @@ class TorchDevServer:
                                    []))
                         continue
                     try:
-                        with op_lock:
-                            rmeta, rarrays = fn(meta, arrays)
+                        with req.under(op_lock):
+                            if op == "dense":
+                                rmeta, rarrays = fn(meta, arrays)
+                            else:
+                                with req.span(tracing.OPS[op]):
+                                    rmeta, rarrays = fn(meta, arrays)
                     except Exception as e:  # keep the daemon alive
                         sendq.put((self._error(op, e), []))
                         continue
@@ -795,6 +830,10 @@ class TorchDevServer:
                     OSError):
                 pass
             finally:
+                if pending:                 # a client that left
+                    with op_lock:
+                        for _, h in pending:
+                            h[1].settle()
                 sendq.put(None)
                 wt.join(timeout=_FRAME_TIMEOUT + 5)
                 try:
@@ -803,7 +842,9 @@ class TorchDevServer:
                     pass
 
         threads: List[threading.Thread] = []
-        while not stop_ev.is_set():
+        for cid in itertools.count():
+            if stop_ev.is_set():
+                break
             try:
                 conn, _ = srv.accept()
             except OSError:
@@ -811,7 +852,8 @@ class TorchDevServer:
             if stop_ev.is_set():
                 conn.close()
                 break
-            t = threading.Thread(target=handle, args=(conn,), daemon=True)
+            t = threading.Thread(target=handle, args=(conn, cid),
+                                 daemon=True)
             t.start()
             threads.append(t)
             threads = [t for t in threads if t.is_alive()]
@@ -1109,5 +1151,6 @@ def devserve_main(argv: List[str]) -> int:
 def _stopped(srv: TorchDevServer) -> int:
     """A stopped daemon's exit code: 1 when it faulted, so that a run
     whose clients the host finished does not pass as a card run."""
+    print("# devserve: %s" % tracing.span_line(srv.spans), file=sys.stderr)
     print("# devserve: %s" % srv.fault_line(), file=sys.stderr)
     return 1 if srv.faults else 0

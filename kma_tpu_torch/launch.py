@@ -10,8 +10,9 @@ gains ``KMA_DEVSERVE_SOCKET`` (both CLIs attach to it) and the card's
 figures the caller left unset (``envelope.py``), then stops the
 daemon and removes the directory.  It returns the child's code, and
 prints on stderr the requests the daemon served by op, its device and
-its faults, then its kernel launches during the run, so a run the
-device did not serve is visible.
+its faults, where the dense requests' time went and why the card
+idled (``tracing.span_line``), then its kernel launches during the run,
+so a run the device did not serve is visible.
 
 Nothing hides the device: ``start`` raises when no daemon can be built
 (no card, a DB both scanners refuse), and a serve thread that died, or
@@ -33,7 +34,7 @@ from typing import List, Mapping, Optional
 
 import torch
 
-from . import envelope
+from . import envelope, tracing
 from .device import DeviceLike, resolve, resolve_devices
 from .devserve import (DevClient, TorchDevServer, fault_line,
                        kernel_launches, reset_kernel_launches)
@@ -163,6 +164,8 @@ def serve_run(srv: TorchDevServer, db: str, cmd: List[str],
     print("# kma_tpu_torch run: child %.2f s, daemon stop %.2f s"
           % (t1 - t0, time.perf_counter() - t1), file=sys.stderr)
     print("# kma_tpu_torch run: %s" % request_line(srv), file=sys.stderr)
+    print("# kma_tpu_torch run: %s" % tracing.span_line(srv.spans),
+          file=sys.stderr)
     print("# kma_tpu_torch run: kernel launches %s" % ", ".join(
         "%s %d" % kv for kv in kernel_launches().items()), file=sys.stderr)
     if died or th.is_alive():

@@ -9,9 +9,12 @@ integer tensors; ``//`` and ``%`` floor as jnp's do.
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import numpy as np
 import torch
+
+from .. import tracing
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,6 +109,19 @@ def _padded(codes, lengths, rows: int, device: torch.device):
     return torch.from_numpy(c).to(device), torch.from_numpy(n).to(device)
 
 
+def _step(call, codes, lengths, rows: int, device: torch.device, tier: int,
+          flat_cap: int):
+    """``call`` on a batch padded to ``rows`` rows, recorded as its
+    ``upload`` and ``device`` spans where a daemon's request
+    is being served (``tracing``)."""
+    req = tracing.current()
+    if req is None:
+        return call(*_padded(codes, lengths, rows, device), tier, flat_cap)
+    t0 = time.perf_counter()
+    return req.step(t0, call, (*_padded(codes, lengths, rows, device),
+                               tier, flat_cap))
+
+
 def dispatch_tier0(call, codes, lengths, batch: int, flat_cap: int,
                    device: torch.device) -> list:
     """Queue ``call(codes_t, lens_t, 0, flat_cap)`` on every ``batch``-row
@@ -113,8 +129,8 @@ def dispatch_tier0(call, codes, lengths, batch: int, flat_cap: int,
     ``batch`` rows, so a read set's batches share one static shape: on
     a CUDA card the ``call`` of either scanner (dense or pair-stream)
     replays one step graph for all of them (``scan_dense.StepGraphs``)."""
-    return [call(*_padded(codes[o: o + batch], lengths[o: o + batch],
-                          batch, device), 0, flat_cap)
+    return [_step(call, codes[o: o + batch], lengths[o: o + batch], batch,
+                  device, 0, flat_cap)
             for o in range(0, codes.shape[0], batch)]
 
 
@@ -136,13 +152,13 @@ def wide_chunks(call, codes, lengths, sel, best_cap: int,
     flat_cap = rows * 2 * best_cap
     for o in range(0, len(sel), rows):
         s = sel[o: o + rows]
-        meta, flat = call(*_padded(codes[s], lengths[s], rows, device), 1,
-                          flat_cap)
-        meta = meta[: len(s)].cpu().numpy()
-        n_out = (meta[:, 1] >> 3).astype(np.int64)
-        yield (s, meta,
-               flat[: int(n_out.sum())].cpu().numpy().astype(np.int32),
-               n_out)
+        meta, flat = _step(call, codes[s], lengths[s], rows, device, 1,
+                           flat_cap)
+        with tracing.span(tracing.DEVICE_WAIT):
+            meta = meta[: len(s)].cpu().numpy()
+            n_out = (meta[:, 1] >> 3).astype(np.int64)
+            flat = flat[: int(n_out.sum())].cpu().numpy()
+        yield s, meta, flat.astype(np.int32), n_out
 
 
 def _segment_starts(codes: torch.Tensor) -> torch.Tensor:

@@ -67,6 +67,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import tracing
 from ..device import DeviceLike, resolve, resolve_devices
 from ..index.format import KmaIndex
 from ..ops.scan_kernel import run_score_rows
@@ -1510,7 +1511,8 @@ class DenseScanner:
         """Sync + post-process a scan_dispatch handle."""
         codes, lengths, futs, flat_cap, Bt = handle
         N = codes.shape[0]
-        outs = [(m.cpu().numpy(), f.cpu().numpy()) for m, f in futs]
+        with tracing.span(tracing.DEVICE_WAIT):
+            outs = [(m.cpu().numpy(), f.cpu().numpy()) for m, f in futs]
 
         scores = np.zeros(N, np.int32)
         modes = np.zeros(N, np.uint8)

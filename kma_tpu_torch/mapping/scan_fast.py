@@ -42,6 +42,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from .. import tracing
 from ..device import DeviceLike
 from .device_index import (DeviceIndex, batch_kmers, lookup_voffsets,
                            valid_windows)
@@ -381,7 +382,8 @@ class FastScanner:
         codes, lengths, futs, flat_cap = handle
         N = codes.shape[0]
         Bt = self.batch
-        outs = [(m.cpu().numpy(), f.cpu().numpy()) for m, f in futs]
+        with tracing.span(tracing.DEVICE_WAIT):
+            outs = [(m.cpu().numpy(), f.cpu().numpy()) for m, f in futs]
         scores = np.zeros(N, np.int32)
         modes = np.zeros(N, np.uint8)
         n_out = np.zeros(N, np.int64)

@@ -377,13 +377,16 @@ def test_hand_started_daemon_exits_1_after_a_fault(n_faults, disk_db,  # noqa: F
     exits 1 if there were any."""
     from collections import Counter
 
-    from kma_tpu_torch import devserve
+    from kma_tpu_torch import devserve, tracing
+    from kma_tpu_torch.device import resolve
     prefix, _ = disk_db
+    device = resolve("cpu")
 
     class Served:
         fault_line = devserve.TorchDevServer.fault_line
 
         def __init__(self, db, batch):
+            self.spans = tracing.Recorder(device)
             self.faults = Counter(dense=n_faults) if n_faults else Counter()
             self.first_fault = repr(RuntimeError(KERNEL_ERROR)) \
                 if n_faults else None
